@@ -1,0 +1,87 @@
+"""The CUDA kernels K1 and K2 against their plain PyTorch versions on the
+card: bit-equal hits and equal occlusion flags.  These need an NVIDIA GPU
+with nvcc and skip without one; run them on the card with
+
+    python -m pytest tests/test_torch_cuda.py -q -m cuda
+"""
+from __future__ import annotations
+
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def cuda_scene():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from bpt_tpu_torch.scene.procedural import cornell_box_scene
+
+    scene, _, _ = cornell_box_scene(32, 32, device="cuda",
+                                    right_object="glass_sphere",
+                                    sphere_subdiv=3)
+    return scene
+
+
+def _rays(n, seed, device="cuda", segment=False):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    lo = torch.tensor([-0.95, 0.05, -0.95], device=device)
+    hi = torch.tensor([0.95, 1.95, 0.95], device=device)
+    o = lo + (hi - lo) * torch.rand((n, 3), generator=gen, device=device)
+    d = torch.randn((n, 3), generator=gen, device=device)
+    d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+    live = torch.rand(n, generator=gen, device=device) < 0.6
+    far = (torch.rand(n, generator=gen, device=device) * 3.0 if segment
+           else torch.full((n,), float("inf"), device=device))
+    mx = torch.where(live, far, torch.full_like(far, -1.0))
+    return o, d, torch.full((n,), 1e-8, device=device), mx
+
+
+@pytest.mark.parametrize("n", [1, 1000, 65_536])
+def test_closest_kernel_bit_equal_to_plain(cuda_scene, n):
+    from bpt_tpu_torch.ops.trace_closest import closest_hit, \
+        closest_hit_plain
+
+    args = _rays(n, seed=n)
+    launches = closest_hit.launches
+    got = closest_hit(cuda_scene.treelets, *args)
+    ref = closest_hit_plain(cuda_scene.treelets, *args)
+    torch.cuda.synchronize()
+    assert closest_hit.launches == launches + 1
+    assert torch.equal(got[1], ref[1])
+    for g, r in zip((got[0], got[2], got[3]), (ref[0], ref[2], ref[3])):
+        assert torch.equal(g.view(torch.int32), r.view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [1, 1000, 65_536])
+def test_any_kernel_equal_to_plain(cuda_scene, n):
+    from bpt_tpu_torch.ops.trace_any import any_hit, any_hit_plain
+
+    args = _rays(n, seed=n + 1, segment=True)
+    launches = any_hit.launches
+    got = any_hit(cuda_scene.treelets_any, *args)
+    ref = any_hit_plain(cuda_scene.treelets_any, *args)
+    torch.cuda.synchronize()
+    assert any_hit.launches == launches + 1
+    assert torch.equal(got, ref)
+
+
+def test_kernel_render_matches_plain_render(cuda_scene):
+    from unittest import mock
+
+    from bpt_tpu_torch.accel import api
+    from bpt_tpu_torch.core.camera import Camera
+    from bpt_tpu_torch.integrators.bdpt import BDPTConfig, render_image
+    from bpt_tpu_torch.ops.trace_any import any_hit_plain
+    from bpt_tpu_torch.ops.trace_closest import closest_hit_plain
+
+    cam = Camera.make([0.0, 1.0, 3.8], [0.0, 1.0, 0.0], [0.0, 1.0, 0.0],
+                      39.0, 32, 32)
+    cfg = BDPTConfig(32, 32, spp=2, rr_depth=4)
+    a, na = render_image(cuda_scene, cam, cfg, seed=1)
+    with mock.patch.object(api, "closest_hit", closest_hit_plain), \
+            mock.patch.object(api, "any_hit", any_hit_plain):
+        b, nb = render_image(cuda_scene, cam, cfg, seed=1)
+    assert na == nb
+    torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
