@@ -1,10 +1,23 @@
 """Scene-level tracing (port of bpt_tpu/accel/api.py).
 
 Both traces run behind live-lane compaction with spatial cluster keys
-(ops/compaction.py): closest hit through K1 (ops/trace_closest.py), any
-hit through K2 (ops/trace_any.py).  The route is the tensors' device and
-nothing else: CUDA tensors launch the kernels, CPU tensors run their
-plain versions.
+(ops/compaction.py), then go by the treelet count of their table:
+
+  * NT <= MAX_TREELETS (2048): closest hit through K1
+    (ops/trace_closest.py::closest_hit), any hit through K2
+    (ops/trace_any.py::any_hit);
+  * NT > MAX_TREELETS: the streamed kernels, closest hit through K3
+    (closest_hit_stream), any hit through K4 (any_hit_stream), in chunks
+    of STREAM_CHUNK treelets.
+
+The threshold is the port's own: K1 and K2 keep every box of the table
+in 48 KB of shared memory, so the limit is shared memory, not VMEM.  The
+reference streams once its tables exceed the TPU's 8 MiB VMEM budget,
+from about 1,640 treelets for closest hit and about 820 for any hit, so a
+923-treelet scene already streams any-hit on the TPU; in the port it
+does not.  The same rule holds on the CPU, where the wrappers run their
+plain versions; the tensors' device picks kernel or plain version and
+nothing else.
 """
 from __future__ import annotations
 
@@ -13,8 +26,9 @@ from typing import NamedTuple
 import torch
 
 from ..ops.compaction import compact_rays, uncompact, uncompact_many
-from ..ops.trace_any import any_hit
-from ..ops.trace_closest import closest_hit
+from ..ops.intersect import MAX_TREELETS, STREAM_CHUNK
+from ..ops.trace_any import any_hit, any_hit_stream
+from ..ops.trace_closest import closest_hit, closest_hit_stream
 
 
 class Hit(NamedTuple):
@@ -38,7 +52,11 @@ def trace_closest(scene, o, d, min_t, max_t) -> Hit:
     tg = scene.treelets
     o_c, d_c, mn_c, mx_c, plan = compact_rays(
         o, d, min_t, max_t, bounds=scene_bounds(tg), kind="ray")
-    h = closest_hit(tg, o_c.contiguous(), d_c.contiguous(), mn_c, mx_c)
+    args = (tg, o_c.contiguous(), d_c.contiguous(), mn_c, mx_c)
+    if tg.block.shape[0] <= MAX_TREELETS:
+        h = closest_hit(*args)
+    else:
+        h = closest_hit_stream(*args, STREAM_CHUNK)
     t, tri, u, v = uncompact_many(h, plan, (torch.inf, -1, 0.0, 0.0))
     return Hit(t=t, tri=tri, u=u, v=v, valid=tri >= 0)
 
@@ -48,5 +66,9 @@ def trace_any(scene, o, d, min_t, max_t):
     tg = scene.treelets_any
     o_c, d_c, mn_c, mx_c, plan = compact_rays(
         o, d, min_t, max_t, bounds=scene_bounds(tg))
-    occ = any_hit(tg, o_c.contiguous(), d_c.contiguous(), mn_c, mx_c)
+    args = (tg, o_c.contiguous(), d_c.contiguous(), mn_c, mx_c)
+    if tg.block.shape[0] <= MAX_TREELETS:
+        occ = any_hit(*args)
+    else:
+        occ = any_hit_stream(*args, STREAM_CHUNK)
     return uncompact(occ, plan, False)

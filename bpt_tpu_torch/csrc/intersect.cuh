@@ -1,0 +1,202 @@
+// Device code shared by the four trace kernels (K1 closest_hit.cu, K2
+// any_hit.cu, K3 closest_hit_stream.cu, K4 any_hit_stream.cu): NaN-
+// propagating min/max, the slab test, Moeller-Trumbore, and the two
+// traversals of a range of treelets whose boxes sit in shared memory.
+//
+// Every kernel is built with -fmad=false and evaluates in the operation
+// order of bpt_tpu/ops/pallas_sweep.py:_slab and _mt_tile, as the plain
+// PyTorch versions in bpt_tpu_torch/ops/intersect.py do, so kernel and
+// plain version agree bit for bit.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace bpt {
+
+constexpr float kEpsilon = 1e-8f;
+constexpr float kTMinHit = 1e-3f;
+constexpr float kTiny = 1e-20f;
+constexpr int kThreads = 128;
+
+// torch.maximum / torch.minimum semantics: NaN propagates.
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fffffff) : fmaxf(a, b);
+}
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fffffff) : fminf(a, b);
+}
+
+__device__ __forceinline__ float inv_dir(float c) {
+  return (c < 0.f ? -1.f : 1.f) / nan_max(fabsf(c), kTiny);
+}
+
+struct Ray {
+  float o[3];
+  float d[3];
+  float inv[3];
+  float mnt;
+  float mxt;
+};
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ ray_o,
+                                        const float* __restrict__ ray_d,
+                                        const float* __restrict__ min_t,
+                                        const float* __restrict__ max_t,
+                                        int lane) {
+  Ray r;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    r.o[a] = ray_o[3 * lane + a];
+    r.d[a] = ray_d[3 * lane + a];
+    r.inv[a] = inv_dir(r.d[a]);
+  }
+  r.mnt = min_t[lane];
+  r.mxt = max_t[lane];
+  return r;
+}
+
+// Slab test of one box (bmin xyz, bmax xyz); *entry = max(tnear, 0).
+__device__ __forceinline__ bool slab(const float* box, const Ray& r,
+                                     float* entry) {
+  float tnear = -INFINITY;
+  float tfar = INFINITY;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    float t1 = (box[a] - r.o[a]) * r.inv[a];
+    float t2 = (box[3 + a] - r.o[a]) * r.inv[a];
+    tnear = nan_max(tnear, nan_min(t1, t2));
+    tfar = nan_min(tfar, nan_max(t1, t2));
+  }
+  *entry = nan_max(tnear, 0.f);
+  return (tfar >= tnear) && (tnear <= r.mxt) && (tfar >= r.mnt);
+}
+
+// Moeller-Trumbore against slot kk of a (9, K) triangle block row set
+// (v0xyz, e1xyz, e2xyz), read through the read-only cache.  Returns
+// |det| >= EPSILON, u, v inside the triangle and t > T_MIN_HIT; the
+// caller applies the ray's window.
+__device__ __forceinline__ bool moller_trumbore(const float* __restrict__ blk,
+                                                int k, int kk, const Ray& r,
+                                                float* t, float* u,
+                                                float* v) {
+  const float v0x = __ldg(blk + 0 * k + kk);
+  const float v0y = __ldg(blk + 1 * k + kk);
+  const float v0z = __ldg(blk + 2 * k + kk);
+  const float e1x = __ldg(blk + 3 * k + kk);
+  const float e1y = __ldg(blk + 4 * k + kk);
+  const float e1z = __ldg(blk + 5 * k + kk);
+  const float e2x = __ldg(blk + 6 * k + kk);
+  const float e2y = __ldg(blk + 7 * k + kk);
+  const float e2z = __ldg(blk + 8 * k + kk);
+  const float ox = r.o[0], oy = r.o[1], oz = r.o[2];
+  const float dx = r.d[0], dy = r.d[1], dz = r.d[2];
+  const float px = dy * e2z - dz * e2y;
+  const float py = dz * e2x - dx * e2z;
+  const float pz = dx * e2y - dy * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  bool ok = fabsf(det) >= kEpsilon;
+  const float inv_det = 1.0f / (ok ? det : 1.0f);
+  const float tx = ox - v0x;
+  const float ty = oy - v0y;
+  const float tz = oz - v0z;
+  const float uu = (tx * px + ty * py + tz * pz) * inv_det;
+  ok = ok && (uu >= 0.f) && (uu <= 1.f);
+  const float qx = ty * e1z - tz * e1y;
+  const float qy = tz * e1x - tx * e1z;
+  const float qz = tx * e1y - ty * e1x;
+  const float vv = (dx * qx + dy * qy + dz * qz) * inv_det;
+  ok = ok && (vv >= 0.f) && (uu + vv <= 1.f);
+  const float tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+  *t = tt;
+  *u = uu;
+  *v = vv;
+  return ok && (tt > kTMinHit);
+}
+
+// Load boxes [j0, j0 + n) of the (NT, 3) bmin / bmax tables into shared
+// memory as (n, 6).  Every thread of the block takes part.
+__device__ __forceinline__ void load_boxes(float* boxes,
+                                           const float* __restrict__ bmin,
+                                           const float* __restrict__ bmax,
+                                           int j0, int n) {
+  for (int i = threadIdx.x; i < n * 3; i += blockDim.x) {
+    const int j = i / 3, a = i % 3;
+    boxes[j * 6 + a] = bmin[j0 * 3 + i];
+    boxes[j * 6 + 3 + a] = bmax[j0 * 3 + i];
+  }
+}
+
+struct Best {
+  float t = INFINITY;
+  int32_t tri = -1;
+  float u = 0.f;
+  float v = 0.f;
+};
+
+// Closest hit over treelets [j0, j0 + n), boxes in shared memory,
+// improving `best` in place.  Treelets are visited in (entry, index)
+// order while entry < best.t: each step rescans the n boxes for the
+// lexicographic successor of the last visited (entry, j), so no per-lane
+// array is held.  A hit improves only on a strictly smaller t; within a
+// treelet the lowest slot wins an equal t.
+__device__ __forceinline__ void closest_in_boxes(
+    const float* boxes, int j0, int n, const float* __restrict__ block,
+    const int32_t* __restrict__ tri_index, int k, const Ray& r,
+    Best& best) {
+  float prev_e = -INFINITY;
+  int prev_j = -1;
+  while (true) {
+    float best_e = INFINITY;
+    int best_j = -1;
+    for (int j = 0; j < n; ++j) {
+      float e;
+      if (!slab(&boxes[j * 6], r, &e)) continue;
+      if (!(e < best.t)) continue;
+      if (e < prev_e || (e == prev_e && j <= prev_j)) continue;
+      if (e < best_e) {
+        best_e = e;
+        best_j = j;
+      }
+    }
+    if (best_j < 0) return;
+    prev_e = best_e;
+    prev_j = best_j;
+
+    const size_t row = (size_t)(j0 + best_j);
+    const float* blk = block + row * 9 * k;
+    for (int kk = 0; kk < k; ++kk) {
+      float tt, uu, vv;
+      bool ok = moller_trumbore(blk, k, kk, r, &tt, &uu, &vv);
+      ok = ok && (tt >= r.mnt) && (tt <= nan_min(best.t, r.mxt));
+      if (ok && tt < best.t) {
+        best.t = tt;
+        best.tri = tri_index[row * k + kk];
+        best.u = uu;
+        best.v = vv;
+      }
+    }
+  }
+}
+
+// Occlusion over treelets [j0, j0 + n), boxes in shared memory, in index
+// order; true at the first hit with t in [min_t, max_t].
+__device__ __forceinline__ bool any_in_boxes(const float* boxes, int j0,
+                                             int n,
+                                             const float* __restrict__ block,
+                                             int k, const Ray& r) {
+  for (int j = 0; j < n; ++j) {
+    float e;
+    if (!slab(&boxes[j * 6], r, &e)) continue;
+    const float* blk = block + (size_t)(j0 + j) * 9 * k;
+    for (int kk = 0; kk < k; ++kk) {
+      float tt, uu, vv;
+      const bool ok = moller_trumbore(blk, k, kk, r, &tt, &uu, &vv);
+      if (ok && (tt >= r.mnt) && (tt <= r.mxt)) return true;
+    }
+  }
+  return false;
+}
+
+}  // namespace bpt

@@ -1,17 +1,19 @@
 """Build and load the port's CUDA kernels.
 
-The sources under `bpt_tpu_torch/csrc/` are compiled at first use by nvcc
-into one shared library with a plain C interface, which is loaded with
-ctypes:
+The sources under `bpt_tpu_torch/csrc/` are compiled at first use by nvcc,
+one process per source, all started together, and linked into one
+shared library with a plain C interface, which is loaded with ctypes:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-         -shared -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/*.cu
+         -Xcompiler -fPIC -Xptxas -v -c csrc/<source>.cu -o <source>.o
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o <lib> *.o
 
 `-fmad=false` keeps every multiply and add separately rounded, so each
 kernel agrees bit for bit with its plain PyTorch version.  The library
 lands in `bpt_tpu_torch/_build/` (git-ignored) under a name carrying the
-hash of the sources and flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.  Nothing here runs at import time.
+hash of the sources, the shared header and the flags, so an edited source
+is rebuilt and an unchanged one is loaded as it is.  Nothing here runs at
+import time.
 """
 from __future__ import annotations
 
@@ -22,13 +24,17 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("closest_hit.cu", "any_hit.cu")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+SOURCES = ("closest_hit.cu", "any_hit.cu", "closest_hit_stream.cu",
+           "any_hit_stream.cu")
+HEADERS = ("intersect.cuh",)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+              "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,6 +45,13 @@ _SIGNATURES = {
                         _P, _P, _P, _P, _P),
     # bmin, bmax, block, nt, k, o, d, min_t, max_t, b, occ, stream
     "bpt_any_hit": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P),
+    # bmin, bmax, block, tri_index, nt, k, chunk, o, d, min_t, max_t, b,
+    # t, tri, u, v, stream
+    "bpt_closest_hit_stream": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
+                               _I, _P, _P, _P, _P, _P),
+    # bmin, bmax, block, nt, k, chunk, o, d, min_t, max_t, b, occ, stream
+    "bpt_any_hit_stream": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P,
+                           _P),
 }
 
 
@@ -74,10 +87,47 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
+
+
+def _run(procs) -> str:
+    """Wait for nvcc processes; raise with their output if one failed."""
+    log = ""
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        log += out
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} -> {proc.returncode}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "; ".join(failed) + "\n" + log)
+    return log
+
+
+def _start(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+
+
+def _compile_and_link(out: Path) -> str:
+    """One nvcc per source, all at once, then one link into `out`."""
+    nvcc = _nvcc()
+    tmp = BUILD_DIR / f"{out.stem}.{os.getpid()}.tmp"
+    tmp.mkdir()
+    try:
+        objs = [tmp / (Path(s).stem + ".o") for s in SOURCES]
+        log = _run([_start([nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o",
+                            str(o)]) for s, o in zip(SOURCES, objs)])
+        lib = tmp / out.name
+        log += _run([_start([nvcc, *ARCH, "-shared", "-o", str(lib),
+                             *map(str, objs)])])
+        os.replace(lib, out)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return log
 
 
 def library() -> KernelLibrary:
@@ -89,13 +139,15 @@ def library() -> KernelLibrary:
     log = ""
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(CSRC / s) for s in SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, out)
+        log = _compile_and_link(out)
     _library = KernelLibrary(out, log)
     return _library
+
+
+def launch(name: str, device, *args) -> None:
+    """Launch kernel entry point `name` of the library on `device`'s
+    current stream; raise if CUDA refused the launch."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = getattr(library(), name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")

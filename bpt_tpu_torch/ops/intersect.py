@@ -12,7 +12,15 @@ import torch
 from ..core.math import EPSILON, T_MIN_HIT
 
 # Boxes live in 48 KB of static-limit shared memory: 6 floats a treelet.
+# K1/K2 hold the whole table there, so they take at most MAX_TREELETS
+# treelets; K3/K4 hold one chunk of at most MAX_TREELETS.
 MAX_TREELETS = 48 * 1024 // (6 * 4)
+# Treelets per chunk of K3/K4 on the main path (accel/api.py).  Timed on
+# an H100 (700 W) on the 3,656-treelet glass box over chunks of 64-2048:
+# K3 is fastest here on the walk batch, K4 within 5% of its best (PERF.md).
+STREAM_CHUNK = 256
+# Elements of a plain version's (lanes, treelets) slab matrix per step.
+SLAB_ELEMS = 1 << 26
 
 
 def _inv(c):
@@ -71,8 +79,10 @@ def moller_trumbore(blk, o, d):
     return ok, tt, uu, vv
 
 
-def check_trace_args(tg, o, d, min_t, max_t):
-    """Device, dtype, shape and contiguity checks of a trace call."""
+def check_trace_args(tg, o, d, min_t, max_t, chunk_nt=None):
+    """Device, dtype, shape and contiguity checks of a trace call.
+    `chunk_nt` is the chunk of a streamed kernel (K3/K4), None for
+    K1/K2."""
     b = o.shape[0] if o.ndim == 2 else -1
     if o.shape != (b, 3) or d.shape != (b, 3):
         raise ValueError(f"rays must be (B, 3), got {o.shape} and {d.shape}")
@@ -97,7 +107,12 @@ def check_trace_args(tg, o, d, min_t, max_t):
             raise ValueError("trace inputs must be contiguous")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
-    if dev.type == "cuda" and nt > MAX_TREELETS:
+    if chunk_nt is not None:
+        if not 1 <= chunk_nt <= MAX_TREELETS:
+            raise ValueError(f"chunk_nt must be in [1, {MAX_TREELETS}], got "
+                             f"{chunk_nt}")
+    elif dev.type == "cuda" and nt > MAX_TREELETS:
         raise ValueError(f"{nt} treelets exceed the kernels' shared-memory "
-                         f"box table ({MAX_TREELETS})")
+                         f"box table ({MAX_TREELETS}); the streamed "
+                         f"kernels take larger tables")
     return b, nt, k

@@ -1,10 +1,15 @@
-"""K2: occlusion (any hit) over the treelet table (replaces the TPU
-kernel bpt_tpu/ops/pallas_sweep.py::trace_any_sweep).
+"""K2 and K4: occlusion (any hit) over the treelet table.
 
-`any_hit` is the wrapper: for tensors on the CPU it runs the plain
-PyTorch version, for CUDA tensors it launches the kernel in
-bpt_tpu_torch/csrc/any_hit.cu or raises.  `any_hit.launches` counts
-kernel launches; `any_hit_plain.cuda_calls` counts calls of the plain
+K2 (`any_hit`, kernel bpt_tpu_torch/csrc/any_hit.cu) replaces the TPU
+kernel bpt_tpu/ops/pallas_sweep.py::trace_any_sweep and takes tables of
+at most MAX_TREELETS treelets.  K4 (`any_hit_stream`, kernel
+bpt_tpu_torch/csrc/any_hit_stream.cu) replaces
+bpt_tpu/ops/pallas_sweep.py::trace_any_stream: the same flags with the
+table taken in chunks of `chunk_nt` treelets, for tables of any size.
+
+Each wrapper runs its plain PyTorch version for tensors on the CPU and
+launches its kernel for CUDA tensors, or raises.  `<wrapper>.launches`
+counts kernel launches; `<plain>.cuda_calls` counts calls of a plain
 version with CUDA tensors (a comparison harness, never a route).
 
 A segment is occluded when a triangle of a slab-overlapped treelet gives
@@ -15,52 +20,99 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .intersect import check_trace_args, moller_trumbore, slab
+from .intersect import SLAB_ELEMS, check_trace_args, moller_trumbore, slab
 
+# (segment, treelet) pairs per triangle-test step of the plain versions.
 _PLAIN_CHUNK = 1 << 16
 
 
-def any_hit_plain(tg, o, d, min_t, max_t):
-    """Plain PyTorch any hit: treelet by treelet, the still-open lanes
-    that overlap it test its K triangles."""
-    if o.is_cuda:
-        any_hit_plain.cuda_calls += 1
+def _any_chunks(tg, o, d, min_t, max_t, chunk_nt):
+    """The plain occlusion test, chunk by chunk in index order: a lane
+    settled in one chunk skips the later ones.  Temporaries are at most
+    (SLAB_ELEMS / chunk_nt lanes, chunk_nt)."""
     b = o.shape[0]
     nt = tg.block.shape[0]
     occ = torch.zeros((b,), dtype=torch.bool, device=o.device)
-    if b == 0:
-        return occ
-    mask, _ = slab(tg.bmin, tg.bmax, o, d, min_t, max_t)
-    for j in range(nt):
-        act = torch.nonzero(mask[:, j] & ~occ).squeeze(1)
-        for s in range(0, act.numel(), _PLAIN_CHUNK):
-            a = act[s:s + _PLAIN_CHUNK]
-            ok, tt, _, _ = moller_trumbore(tg.block[j:j + 1], o[a], d[a])
-            ok &= (tt >= min_t[a, None]) & (tt <= max_t[a, None])
-            occ[a] = ok.any(dim=1)
+    open_ = torch.nonzero(max_t >= min_t).squeeze(1)
+    lanes = max(1, SLAB_ELEMS // chunk_nt)
+    for c0 in range(0, nt, chunk_nt):
+        if open_.numel() == 0:
+            break
+        c1 = min(c0 + chunk_nt, nt)
+        hits = torch.zeros(open_.shape, dtype=torch.int32, device=o.device)
+        for s0 in range(0, open_.numel(), lanes):
+            ln = open_[s0:s0 + lanes]
+            mask, _ = slab(tg.bmin[c0:c1], tg.bmax[c0:c1], o[ln], d[ln],
+                           min_t[ln], max_t[ln])
+            li, lj = torch.nonzero(mask, as_tuple=True)
+            del mask
+            for s in range(0, li.numel(), _PLAIN_CHUNK):
+                pi, pj = li[s:s + _PLAIN_CHUNK], lj[s:s + _PLAIN_CHUNK]
+                a = ln[pi]
+                ok, tt, _, _ = moller_trumbore(tg.block[pj + c0], o[a], d[a])
+                ok &= (tt >= min_t[a, None]) & (tt <= max_t[a, None])
+                hits.index_add_(0, pi + s0, ok.any(dim=1).to(torch.int32))
+        settled = hits > 0
+        occ[open_[settled]] = True
+        open_ = open_[~settled]
     return occ
+
+
+def any_hit_plain(tg, o, d, min_t, max_t):
+    """Plain PyTorch version of K2: the whole table as one chunk."""
+    if o.is_cuda:
+        any_hit_plain.cuda_calls += 1
+    return _any_chunks(tg, o, d, min_t, max_t, max(tg.block.shape[0], 1))
 
 
 any_hit_plain.cuda_calls = 0
 
 
+def any_hit_stream_plain(tg, o, d, min_t, max_t, chunk_nt):
+    """Plain PyTorch version of K4: chunks of `chunk_nt` treelets."""
+    if o.is_cuda:
+        any_hit_stream_plain.cuda_calls += 1
+    return _any_chunks(tg, o, d, min_t, max_t, chunk_nt)
+
+
+any_hit_stream_plain.cuda_calls = 0
+
+
 def any_hit(tg, o, d, min_t, max_t):
-    """Occlusion flags (B,) bool of segments (B, 3) with (B,) windows."""
+    """K2: occlusion flags (B,) bool of segments (B, 3) with (B,) windows
+    against a table of at most MAX_TREELETS treelets."""
     b, nt, k = check_trace_args(tg, o, d, min_t, max_t)
     if o.device.type == "cpu":
         return any_hit_plain(tg, o, d, min_t, max_t)
     occ = torch.empty((b,), dtype=torch.bool, device=o.device)
     if b == 0:
         return occ
-    lib = _build.library()
-    err = lib.bpt_any_hit(
-        tg.bmin.data_ptr(), tg.bmax.data_ptr(), tg.block.data_ptr(), nt, k,
-        o.data_ptr(), d.data_ptr(), min_t.data_ptr(), max_t.data_ptr(), b,
-        occ.data_ptr(), torch.cuda.current_stream(o.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"any_hit kernel launch failed: CUDA error {err}")
+    _build.launch("bpt_any_hit", o.device, tg.bmin.data_ptr(),
+                  tg.bmax.data_ptr(), tg.block.data_ptr(), nt, k,
+                  o.data_ptr(), d.data_ptr(), min_t.data_ptr(),
+                  max_t.data_ptr(), b, occ.data_ptr())
     any_hit.launches += 1
     return occ
 
 
 any_hit.launches = 0
+
+
+def any_hit_stream(tg, o, d, min_t, max_t, chunk_nt):
+    """K4: occlusion flags (B,) bool against a table of any size, streamed
+    in chunks of `chunk_nt` (1..MAX_TREELETS) treelets."""
+    b, nt, k = check_trace_args(tg, o, d, min_t, max_t, chunk_nt)
+    if o.device.type == "cpu":
+        return any_hit_stream_plain(tg, o, d, min_t, max_t, chunk_nt)
+    occ = torch.empty((b,), dtype=torch.bool, device=o.device)
+    if b == 0:
+        return occ
+    _build.launch("bpt_any_hit_stream", o.device, tg.bmin.data_ptr(),
+                  tg.bmax.data_ptr(), tg.block.data_ptr(), nt, k, chunk_nt,
+                  o.data_ptr(), d.data_ptr(), min_t.data_ptr(),
+                  max_t.data_ptr(), b, occ.data_ptr())
+    any_hit_stream.launches += 1
+    return occ
+
+
+any_hit_stream.launches = 0

@@ -13,7 +13,8 @@ leaf equals the reference package's exactly.
 
 `scene_from_arrays` builds the same SceneData from numpy leaves keyed by
 field path ("geom.v0", "treelets.block", ...), which is how a test hands
-the reference package's arrays to the port.
+the reference package's arrays to the port.  `load_scene` reads an OBJ
+file with the reference's jax-free parser (bpt_tpu.scene.obj.load_obj).
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import torch
 
 from bpt_tpu.accel.build import LEAF_SIZE, build_bvh
 from bpt_tpu.accel.treelets import build_treelets
-from bpt_tpu.scene.obj import ObjData
+from bpt_tpu.scene.obj import ObjData, load_obj
 
 from ..accel.treelets import TraceGeom, TreeletGeom, make_treelet_geom
 from ..bsdf.bsdf import DIFFUSE, GLASS, MIRROR, MIXTURE, PHONG, MaterialTable
@@ -348,3 +349,10 @@ def build_scene(obj: ObjData, device, tex_dir: str = ""
         bvh_nodes=bvh.n_nodes,
     )
     return scene, meta
+
+
+def load_scene(obj_path: str, device) -> tuple[SceneData, SceneMeta]:
+    """Scene of an OBJ/MTL file on `device`; map_Kd textures resolve
+    relative to the file's directory."""
+    return build_scene(load_obj(obj_path), device,
+                       tex_dir=os.path.dirname(os.path.abspath(obj_path)))

@@ -2,23 +2,35 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from bpt_tpu_torch/csrc/, checks each one
-against its plain PyTorch version at the main path's shapes, renders the
-bench configuration (procedural glass Cornell box, 256x256, 16 spp,
-rr_depth 8, 2 samples per batch, seed 7) through the kernels, and
-compares a small render through the kernels with one through the plain
-versions.  One JSON line per phase; the second-to-last lines are the
-card's `nvidia-smi` name and power limit and the per-kernel summary; the
-last line is {"ok": true, "device": {...}}.  Any failed check raises, so
-the exit code is not 0 and no result line is printed.  Without a CUDA
-device it exits with code 2.  JAX is never imported.
+Builds the port's CUDA kernels from bpt_tpu_torch/csrc/ and checks each
+one against its plain PyTorch version at the main paths' shapes.  Two
+paths are driven through `render_chunk` (256x256, rr_depth 8, 2 samples
+per batch, seed 7):
+
+  * the bench configuration: the procedural glass Cornell box (19
+    treelets), traced by K1 (closest hit) and K2 (any hit), 16 spp;
+  * the large scene: the glass box with a subdiv-7 sphere (327,704
+    triangles, 3,656 treelets) written as a scene file (TOML + OBJ/MTL)
+    and read back through `load_toml` and `load_scene`, traced by the
+    streamed kernels K3 and K4, 16 spp.
+
+Each kernel's launch count is reset just before its path runs and read
+just after.  A small render through the kernels is compared with one
+through the plain versions on each scene.  One JSON line per phase, each
+with its `elapsed_s`; the second-to-last lines are the card's
+`nvidia-smi` name and power limit and the per-kernel summary; the last
+line is {"ok": true, "device": {...}}.  Any failed check raises, so the
+exit code is not 0 and no result line is printed.  Without a CUDA device
+it exits with code 2.  JAX is never imported.
 """
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -26,12 +38,19 @@ import torch
 SEED = 7
 BENCH = dict(width=256, height=256, spp=16, rr_depth=8, sb=2)
 SMALL = dict(width=64, height=64, spp=4, rr_depth=5)
+LARGE = dict(sphere_subdiv=7, n_triangles=327_704, n_treelets=3_656)
+SMALL_LARGE = dict(width=32, height=32, spp=2, rr_depth=4)
+# The bench scene's 19 treelets in chunks of 8: three chunks, the last
+# one ragged.
+BENCH_CHUNK = 8
 DEAD_FRAC_K1 = 0.10
 LIVE_FRAC_K2 = 0.30
 REPS = 5
 
 
-def emit(obj):
+def emit(obj, t0=None):
+    if t0 is not None:
+        obj["elapsed_s"] = time.perf_counter() - t0
     print(json.dumps(obj), flush=True)
 
 
@@ -112,8 +131,10 @@ def k1_inputs(scene, cam, device):
 
 def k2_inputs(scene, device, n):
     """n shadow segments between surface points of the scene (eye-side
-    starts, light-side ends), ~70% dead, as in the mega-connect batch."""
-    from bpt_tpu_torch.ops.trace_closest import closest_hit
+    starts, light-side ends), ~70% dead, as in the mega-connect batch,
+    compacted as `accel.api.trace_any` compacts them."""
+    from bpt_tpu_torch.accel.api import scene_bounds, trace_closest
+    from bpt_tpu_torch.ops.compaction import compact_rays
 
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     m = 1 << 18
@@ -123,12 +144,8 @@ def k2_inputs(scene, device, n):
     for _ in range(2):
         o = lo + (hi - lo) * _uniform(gen, (m, 3), device)
         d = _random_dirs(gen, m, device)
-        t, tri, _, _ = closest_hit(scene.treelets, o, d,
-                                   torch.full((m,), 1e-8, device=device),
-                                   torch.full((m,), float("inf"),
-                                              device=device))
-        keep = tri >= 0
-        pts.append((o + d * t[:, None])[keep])
+        h = trace_closest(scene, o, d, 1e-8, float("inf"))
+        pts.append((o + d * h.t[:, None])[h.valid])
     ia = torch.randint(0, pts[0].shape[0], (n,), generator=gen, device=device)
     ib = torch.randint(0, pts[1].shape[0], (n,), generator=gen, device=device)
     start, end = pts[0][ia], pts[1][ib]
@@ -137,7 +154,43 @@ def k2_inputs(scene, device, n):
     d = seg / torch.clamp_min(dist, 1e-20)[:, None]
     live = _uniform(gen, n, device) < LIVE_FRAC_K2
     max_t = torch.where(live, dist - 1e-5, torch.full_like(dist, -1.0))
-    return start, d, torch.full((n,), 1e-8, device=device), max_t
+    segs = (start, d, torch.full((n,), 1e-8, device=device), max_t)
+    o, d, mn, mx, _ = compact_rays(*segs,
+                                   bounds=scene_bounds(scene.treelets_any))
+    return segs, (o.contiguous(), d.contiguous(), mn, mx)
+
+
+def compacted_k1_inputs(scene, cam, device):
+    """k1_inputs compacted as `accel.api.trace_closest` compacts them:
+    {"primary": (o, d, min_t, max_t), "walk": ...}, plus the raw rays."""
+    from bpt_tpu_torch.accel.api import scene_bounds
+    from bpt_tpu_torch.ops.compaction import compact_rays
+
+    out, raw = {}, {}
+    for name, rays in zip(("primary", "walk"), k1_inputs(scene, cam, device)):
+        o, d, mn, mx, _ = compact_rays(*rays,
+                                       bounds=scene_bounds(scene.treelets),
+                                       kind="ray")
+        out[name] = (o.contiguous(), d.contiguous(), mn, mx)
+        raw[name] = rays
+    return out, raw
+
+
+def bit_mismatch(a, b):
+    """Lanes where two float32 tensors differ bit for bit."""
+    return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+
+
+def closest_report(got, ref):
+    """tri mismatches, t/u/v bit mismatches and max |error| over hits of
+    a closest-hit result against a reference result."""
+    hit = ref[1] >= 0
+    err = max(float((got[i][hit] - ref[i][hit]).abs().max())
+              if bool(hit.any()) else 0.0 for i in (0, 2, 3))
+    return {"tri_mismatch": int((got[1] != ref[1]).sum()),
+            "t_u_v_bit_mismatch": [bit_mismatch(got[i], ref[i])
+                                   for i in (0, 2, 3)],
+            "max_abs_err": err}
 
 
 def phase_device():
@@ -158,64 +211,55 @@ def phase_device():
         "kernel_build_s": time.perf_counter() - t0,
         "ptxas": ptxas,
     }
-    emit(info)
+    emit(info, t0)
     return info
 
 
-def phase_k1(scene, cam, device):
+def phase_k1(scene, rays):
     from bpt_tpu_torch.ops.compaction import compact_rays
     from bpt_tpu_torch.accel.api import scene_bounds
     from bpt_tpu_torch.ops.trace_closest import closest_hit, \
         closest_hit_plain
 
+    t0 = time.perf_counter()
     tg = scene.treelets
+    compacted, raw_rays = rays
     out = {"phase": "k1_closest_hit"}
     timing = None
-    for name, rays in zip(("primary", "walk"), k1_inputs(scene, cam, device)):
-        o, d, mn, mx, _ = compact_rays(*rays, bounds=scene_bounds(tg),
-                                       kind="ray")
-        o, d = o.contiguous(), d.contiguous()
+    for name, (o, d, mn, mx) in compacted.items():
         got = closest_hit(tg, o, d, mn, mx)
         ref = closest_hit_plain(tg, o, d, mn, mx)
         torch.cuda.synchronize()
-        n = o.shape[0]
-        tri_bad = int((got[1] != ref[1]).sum())
-        bits_bad = [int((g.view(torch.int32) != r.view(torch.int32)).sum())
-                    for g, r in ((got[0], ref[0]), (got[2], ref[2]),
-                                 (got[3], ref[3]))]
-        hit = ref[1] >= 0
-        err = max(float((got[i][hit] - ref[i][hit]).abs().max())
-                  if bool(hit.any()) else 0.0 for i in (0, 2, 3))
+        rep = closest_report(got, ref)
         k_ms = cuda_ms(lambda: closest_hit(tg, o, d, mn, mx))
         p_ms = cuda_ms(lambda: closest_hit_plain(tg, o, d, mn, mx), reps=2)
-        cmp_ms = cuda_ms(lambda: compact_rays(*rays, bounds=scene_bounds(tg),
+        cmp_ms = cuda_ms(lambda: compact_rays(*raw_rays[name],
+                                              bounds=scene_bounds(tg),
                                               kind="ray"))
-        raw = [x.contiguous() for x in rays]
+        raw = [x.contiguous() for x in raw_rays[name]]
         raw_ms = cuda_ms(lambda: closest_hit(tg, *raw))
-        out[name] = {"lanes": n, "live": int((mx >= mn).sum()),
-                     "hits": int(hit.sum()), "tri_mismatch": tri_bad,
-                     "t_u_v_bit_mismatch": bits_bad, "max_abs_err": err,
+        out[name] = {"lanes": o.shape[0], "live": int((mx >= mn).sum()),
+                     "hits": int((ref[1] >= 0).sum()), **rep,
                      "ms": k_ms, "plain_ms": p_ms, "compact_ms": cmp_ms,
                      "ms_uncompacted": raw_ms}
-        if tri_bad or any(bits_bad):
-            emit(out)
+        if rep["tri_mismatch"] or any(rep["t_u_v_bit_mismatch"]):
+            emit(out, t0)
             raise AssertionError(f"K1 disagrees with its plain version on "
                                  f"the {name} batch")
         if name == "walk":
-            timing = (k_ms, p_ms, err)
-    emit(out)
+            timing = (k_ms, p_ms, rep["max_abs_err"])
+    emit(out, t0)
     return timing
 
 
-def phase_k2(scene, device, n):
+def phase_k2(scene, segs):
     from bpt_tpu_torch.accel.api import scene_bounds
     from bpt_tpu_torch.ops.compaction import compact_rays
     from bpt_tpu_torch.ops.trace_any import any_hit, any_hit_plain
 
+    t0 = time.perf_counter()
     tg = scene.treelets_any
-    segs = k2_inputs(scene, device, n)
-    o, d, mn, mx, _ = compact_rays(*segs, bounds=scene_bounds(tg))
-    o, d = o.contiguous(), d.contiguous()
+    raw_segs, (o, d, mn, mx) = segs
     got = any_hit(tg, o, d, mn, mx)
     ref = any_hit_plain(tg, o, d, mn, mx)
     torch.cuda.synchronize()
@@ -224,16 +268,160 @@ def phase_k2(scene, device, n):
     flag_err = float((got.int() - ref.int()).abs().max())
     k_ms = cuda_ms(lambda: any_hit(tg, o, d, mn, mx))
     p_ms = cuda_ms(lambda: any_hit_plain(tg, o, d, mn, mx), reps=2)
-    cmp_ms = cuda_ms(lambda: compact_rays(*segs, bounds=scene_bounds(tg)))
-    raw_ms = cuda_ms(lambda: any_hit(tg, *segs))
-    out = {"phase": "k2_any_hit", "lanes": n,
+    cmp_ms = cuda_ms(lambda: compact_rays(*raw_segs, bounds=scene_bounds(tg)))
+    raw_ms = cuda_ms(lambda: any_hit(tg, *raw_segs))
+    out = {"phase": "k2_any_hit", "lanes": o.shape[0],
            "live": int((mx >= mn).sum()), "occluded": int(ref.sum()),
            "flag_mismatch": bad, "ms": k_ms, "plain_ms": p_ms,
            "compact_ms": cmp_ms, "ms_uncompacted": raw_ms}
-    emit(out)
+    emit(out, t0)
     if bad:
         raise AssertionError("K2 disagrees with its plain version")
     return k_ms, p_ms, flag_err, bad
+
+
+def phase_large_scene(device):
+    """The large scene as a user brings it: written as TOML + OBJ/MTL to a
+    temporary directory, then read back through load_toml and
+    load_scene."""
+    from bpt_tpu_torch.scene.export import export_cornell_box
+    from bpt_tpu_torch.scene.scene import load_scene
+    from bpt_tpu_torch.scene.toml_config import load_toml
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        toml_path = export_cornell_box(
+            tmp, width=BENCH["width"], height=BENCH["height"],
+            spp=BENCH["spp"], rr_depth=BENCH["rr_depth"],
+            right_object="glass_sphere",
+            sphere_subdiv=LARGE["sphere_subdiv"])
+        t1 = time.perf_counter()
+        cfg = load_toml(toml_path)
+        obj_bytes = os.path.getsize(cfg.obj_file)
+        scene, meta = load_scene(cfg.obj_file, device)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    nt = scene.treelets.block.shape[0]
+    out = {"phase": "large_scene", "config": "glass cbox, sphere subdiv 7, "
+           "scene file -> load_toml -> load_scene",
+           "n_triangles": meta.n_triangles, "n_treelets": nt,
+           "n_treelets_any": scene.treelets_any.block.shape[0],
+           "obj_bytes": obj_bytes, "write_s": t1 - t0, "load_s": t2 - t1,
+           "toml": {"width": cfg.width, "height": cfg.height,
+                    "spp": cfg.spp, "rr_depth": cfg.rr_depth}}
+    emit(out, t0)
+    if (meta.n_triangles, nt) != (LARGE["n_triangles"], LARGE["n_treelets"]):
+        raise AssertionError("the large scene is not the 327,704-triangle, "
+                             "3,656-treelet glass box")
+    return scene, cfg
+
+
+def phase_k3(large, large_rays, bench, bench_rays):
+    """K3 against its plain version bit for bit on the large scene at the
+    slice's closest-hit shapes; on the bench scene in chunks of 8, K3's t
+    against K1's."""
+    from bpt_tpu_torch.ops.intersect import STREAM_CHUNK
+    from bpt_tpu_torch.ops.trace_closest import closest_hit, \
+        closest_hit_stream, closest_hit_stream_plain
+
+    t0 = time.perf_counter()
+    out = {"phase": "k3_closest_hit_stream", "chunk_nt": STREAM_CHUNK}
+    tg = large.treelets
+    timing = None
+    for name, args in large_rays[0].items():
+        got = closest_hit_stream(tg, *args, STREAM_CHUNK)
+        tp = time.perf_counter()
+        ref = closest_hit_stream_plain(tg, *args, STREAM_CHUNK)
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - tp
+        rep = closest_report(got, ref)
+        k_ms = cuda_ms(lambda: closest_hit_stream(tg, *args, STREAM_CHUNK))
+        p_ms = cuda_ms(lambda: closest_hit_stream_plain(tg, *args,
+                                                        STREAM_CHUNK), reps=1)
+        out["large_" + name] = {
+            "lanes": args[0].shape[0], "live": int((args[3] >= args[2]).sum()),
+            "hits": int((ref[1] >= 0).sum()), **rep, "ms": k_ms,
+            "plain_ms": p_ms, "plain_first_call_s": plain_wall}
+        if rep["tri_mismatch"] or any(rep["t_u_v_bit_mismatch"]):
+            emit(out, t0)
+            raise AssertionError(f"K3 disagrees with its plain version on "
+                                 f"the large scene's {name} batch")
+        if name == "walk":
+            timing = (k_ms, p_ms, rep["max_abs_err"])
+
+    tg = bench.treelets
+    for name, args in bench_rays[0].items():
+        got = closest_hit_stream(tg, *args, BENCH_CHUNK)
+        plain = closest_hit_stream_plain(tg, *args, BENCH_CHUNK)
+        k1 = closest_hit(tg, *args)
+        torch.cuda.synchronize()
+        live = args[3] >= args[2]
+        same = got[1] == k1[1]
+        rep = {"vs_plain": closest_report(got, plain),
+               "t_bit_mismatch_vs_k1_live": bit_mismatch(got[0][live],
+                                                         k1[0][live]),
+               "tri_mismatch_vs_k1": int((~same).sum()),
+               "tri_mismatch_frac_vs_k1": float((~same).double().mean()),
+               "u_v_bit_mismatch_vs_k1_same_tri": [
+                   bit_mismatch(got[i][same], k1[i][same]) for i in (2, 3)]}
+        out[f"bench_{name}_chunk{BENCH_CHUNK}"] = rep
+        if (rep["vs_plain"]["tri_mismatch"]
+                or any(rep["vs_plain"]["t_u_v_bit_mismatch"])
+                or rep["t_bit_mismatch_vs_k1_live"]
+                or rep["tri_mismatch_frac_vs_k1"] > 0.02
+                or any(rep["u_v_bit_mismatch_vs_k1_same_tri"])):
+            emit(out, t0)
+            raise AssertionError(f"K3 at chunk {BENCH_CHUNK} disagrees on the "
+                                 f"bench scene's {name} batch")
+    emit(out, t0)
+    return timing
+
+
+def phase_k4(large, large_segs, bench, bench_segs):
+    """K4 against its plain version on the large scene's connect batch;
+    on the bench scene in chunks of 8, K4 against K2."""
+    from bpt_tpu_torch.ops.intersect import STREAM_CHUNK
+    from bpt_tpu_torch.ops.trace_any import any_hit, any_hit_stream, \
+        any_hit_stream_plain
+
+    t0 = time.perf_counter()
+    tg = large.treelets_any
+    o, d, mn, mx = large_segs[1]
+    got = any_hit_stream(tg, o, d, mn, mx, STREAM_CHUNK)
+    tp = time.perf_counter()
+    ref = any_hit_stream_plain(tg, o, d, mn, mx, STREAM_CHUNK)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - tp
+    bad = int((got != ref).sum())
+    flag_err = float((got.int() - ref.int()).abs().max())
+    k_ms = cuda_ms(lambda: any_hit_stream(tg, o, d, mn, mx, STREAM_CHUNK))
+    p_ms = cuda_ms(lambda: any_hit_stream_plain(tg, o, d, mn, mx,
+                                                STREAM_CHUNK), reps=1)
+    out = {"phase": "k4_any_hit_stream", "chunk_nt": STREAM_CHUNK,
+           "large": {"lanes": o.shape[0], "live": int((mx >= mn).sum()),
+                     "occluded": int(ref.sum()), "flag_mismatch": bad,
+                     "ms": k_ms, "plain_ms": p_ms,
+                     "plain_first_call_s": plain_wall}}
+    tg = bench.treelets_any
+    args = bench_segs[1]
+    got_b = any_hit_stream(tg, *args, BENCH_CHUNK)
+    plain_b = any_hit_stream_plain(tg, *args, BENCH_CHUNK)
+    k2 = any_hit(tg, *args)
+    torch.cuda.synchronize()
+    out[f"bench_chunk{BENCH_CHUNK}"] = {
+        "lanes": args[0].shape[0], "occluded": int(k2.sum()),
+        "flag_mismatch_vs_plain": int((got_b != plain_b).sum()),
+        "flag_mismatch_vs_k2": int((got_b != k2).sum())}
+    emit(out, t0)
+    if bad or int((got_b != plain_b).sum()) or int((got_b != k2).sum()):
+        raise AssertionError("K4 disagrees with its plain version or K2")
+    return k_ms, p_ms, flag_err, bad
+
+
+_KERNEL_GROUPS = (("k3_closest_hit_stream", "closest_hit_stream_kernel"),
+                  ("k4_any_hit_stream", "any_hit_stream_kernel"),
+                  ("k1_closest_hit", "closest_hit_kernel"),
+                  ("k2_any_hit", "any_hit_kernel"))
 
 
 def _profile_batch(scene, cam_consts, cfg, key, batch_wall_s):
@@ -252,21 +440,18 @@ def _profile_batch(scene, cam_consts, cfg, key, batch_wall_s):
                      samples_per_batch=BENCH["sb"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    groups = {"k1_closest_hit": 0.0, "k2_any_hit": 0.0, "sort": 0.0,
-              "other": 0.0}
+    groups = {g: 0.0 for g, _ in _KERNEL_GROUPS}
+    groups.update(sort=0.0, other=0.0)
     for ev in prof.key_averages():
         us = ev.self_device_time_total
         if not us or ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name = ev.key
-        if "closest_hit_kernel" in name:
-            groups["k1_closest_hit"] += us
-        elif "any_hit_kernel" in name:
-            groups["k2_any_hit"] += us
-        elif "sort" in name.lower() or "radix" in name.lower():
-            groups["sort"] += us
-        else:
-            groups["other"] += us
+        group = next((g for g, k in _KERNEL_GROUPS if k in name), None)
+        if group is None:
+            low = name.lower()
+            group = "sort" if "sort" in low or "radix" in low else "other"
+        groups[group] += us
     total = sum(groups.values())
     if total == 0.0:
         return {"profile": "not measured (no device time in the trace)"}
@@ -291,16 +476,43 @@ def _identity_layout(o, d, min_t, max_t, bounds=None, kind="segment"):
                                      mx >= mn)
 
 
+def _counters():
+    from bpt_tpu_torch.ops import trace_any as ta
+    from bpt_tpu_torch.ops import trace_closest as tc
+
+    launches = {"k1_closest_hit": tc.closest_hit,
+                "k2_any_hit": ta.any_hit,
+                "k3_closest_hit_stream": tc.closest_hit_stream,
+                "k4_any_hit_stream": ta.any_hit_stream}
+    plains = (tc.closest_hit_plain, ta.any_hit_plain,
+              tc.closest_hit_stream_plain, ta.any_hit_stream_plain)
+    return launches, plains
+
+
+def reset_counts():
+    launches, plains = _counters()
+    for fn in launches.values():
+        fn.launches = 0
+    for fn in plains:
+        fn.cuda_calls = 0
+
+
+def read_counts():
+    """(launches by kernel, calls of plain versions on CUDA tensors)."""
+    launches, plains = _counters()
+    return ({k: fn.launches for k, fn in launches.items()},
+            sum(fn.cuda_calls for fn in plains))
+
+
 def phase_slice(scene, cam, device, smi):
+    """The bench configuration through K1 and K2."""
     from unittest import mock
 
     from bpt_tpu_torch.accel import api
     from bpt_tpu_torch.core import rng
     from bpt_tpu_torch.integrators.bdpt import BDPTConfig, render_chunk
-    from bpt_tpu_torch.ops.trace_any import any_hit, any_hit_plain
-    from bpt_tpu_torch.ops.trace_closest import closest_hit, \
-        closest_hit_plain
 
+    t0 = time.perf_counter()
     cfg = BDPTConfig(BENCH["width"], BENCH["height"], spp=BENCH["spp"],
                      rr_depth=BENCH["rr_depth"])
     cam_consts = cam.device_constants(device)
@@ -312,19 +524,16 @@ def phase_slice(scene, cam, device, smi):
         torch.cuda.synchronize()
         return fb, int(nr)
 
-    t0 = time.perf_counter()
+    tw = time.perf_counter()
     chunk()
-    warm_s = time.perf_counter() - t0
+    warm_s = time.perf_counter() - tw
 
     torch.cuda.reset_peak_memory_stats()
-    closest_hit.launches = any_hit.launches = 0
-    closest_hit_plain.cuda_calls = any_hit_plain.cuda_calls = 0
-    t0 = time.perf_counter()
+    reset_counts()
+    tw = time.perf_counter()
     fb, nrays = chunk()
-    wall = time.perf_counter() - t0
-    launches = {"k1_closest_hit": closest_hit.launches,
-                "k2_any_hit": any_hit.launches}
-    plain_calls = closest_hit_plain.cuda_calls + any_hit_plain.cuda_calls
+    wall = time.perf_counter() - tw
+    launches, plain_calls = read_counts()
     peak = torch.cuda.max_memory_allocated()
 
     # Spread, and compaction's share: more chunks, alternating with chunks
@@ -333,17 +542,15 @@ def phase_slice(scene, cam, device, smi):
     # kernels either way).
     walls, walls_nc = [wall], []
     for swapped in (True, True, False, False, True):
+        tw = time.perf_counter()
         if swapped:
             with mock.patch.object(api, "compact_rays", _identity_layout):
-                t0 = time.perf_counter()
                 fb_nc, nrays_nc = chunk()
-                walls_nc.append(time.perf_counter() - t0)
+            walls_nc.append(time.perf_counter() - tw)
         else:
-            t0 = time.perf_counter()
             chunk()
-            walls.append(time.perf_counter() - t0)
+            walls.append(time.perf_counter() - tw)
     wall_med = statistics.median(walls)
-    wall_nc_med = statistics.median(walls_nc)
 
     out = {"phase": "slice", "config": "procedural glass cbox 256x256 "
            "16spp rr8 sb2 seed7", "nvidia_smi": smi, "warmup_s": warm_s,
@@ -353,44 +560,95 @@ def phase_slice(scene, cam, device, smi):
            "plain_calls_on_cuda": plain_calls,
            "image_mean": float(fb.mean()),
            "finite": bool(torch.isfinite(fb).all()),
-           "wall_s_without_compaction": wall_nc_med,
+           "wall_s_without_compaction": statistics.median(walls_nc),
            "wall_s_without_compaction_runs": walls_nc,
            "nrays_without_compaction": nrays_nc,
            "image_mean_without_compaction": float(fb_nc.mean())}
     batches = cfg.spp // BENCH["sb"]
     out.update(_profile_batch(scene, cam_consts, cfg, key,
                               wall_med / batches))
-    emit(out)
-    if not out["finite"]:
-        raise AssertionError("non-finite pixels in the slice render")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel was not launched: {launches}")
-    if plain_calls:
-        raise AssertionError("plain versions ran on CUDA tensors")
-    if out["image_mean"] <= 0.0:
-        raise AssertionError("black image")
+    emit(out, t0)
+    check_render(out, used=("k1_closest_hit", "k2_any_hit"),
+                 unused=("k3_closest_hit_stream", "k4_any_hit_stream"))
     return launches
 
 
-def phase_paths(device):
-    """64x64 4spp rr5 through the kernels and through the plain versions
+def phase_slice_large(scene, cfg_t, device, smi):
+    """The large scene, read from its scene file, through K3 and K4 at
+    the settings of its TOML (256x256, 16 spp, rr8) and 2 samples per
+    batch."""
+    from bpt_tpu_torch.core import rng
+    from bpt_tpu_torch.integrators.bdpt import BDPTConfig, render_chunk
+
+    t0 = time.perf_counter()
+    cfg = BDPTConfig(cfg_t.width, cfg_t.height, spp=cfg_t.spp,
+                     rr_depth=cfg_t.rr_depth)
+    cam_consts = cfg_t.camera.device_constants(device)
+    key = rng.key(SEED, device)
+
+    def chunk():
+        fb, nr = render_chunk(scene, cam_consts, cfg, key, cfg.spp,
+                              samples_per_batch=BENCH["sb"])
+        torch.cuda.synchronize()
+        return fb, int(nr)
+
+    tw = time.perf_counter()
+    chunk()
+    warm_s = time.perf_counter() - tw
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    tw = time.perf_counter()
+    fb, nrays = chunk()
+    wall = time.perf_counter() - tw
+    launches, plain_calls = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    out = {"phase": "slice_large",
+           "config": f"glass cbox subdiv 7 (scene file) {cfg.width}x"
+                     f"{cfg.height} {cfg.spp}spp rr{cfg.rr_depth} "
+                     f"sb{BENCH['sb']} seed{SEED}",
+           "nvidia_smi": smi, "warmup_s": warm_s, "wall_s": wall,
+           "nrays": nrays, "rays_per_s": nrays / wall,
+           "peak_mem_bytes": peak, "launches": launches,
+           "plain_calls_on_cuda": plain_calls,
+           "image_mean": float(fb.mean()),
+           "finite": bool(torch.isfinite(fb).all())}
+    out.update(_profile_batch(scene, cam_consts, cfg, key,
+                              wall / (cfg.spp // BENCH["sb"])))
+    emit(out, t0)
+    check_render(out, used=("k3_closest_hit_stream", "k4_any_hit_stream"),
+                 unused=("k1_closest_hit", "k2_any_hit"))
+    return launches
+
+
+def check_render(out, used, unused):
+    launches = out["launches"]
+    if not out["finite"]:
+        raise AssertionError(f"non-finite pixels in {out['phase']}")
+    if min(launches[k] for k in used) <= 0:
+        raise AssertionError(f"a kernel of the path was not launched: "
+                             f"{launches}")
+    if any(launches[k] for k in unused):
+        raise AssertionError(f"a kernel of another path was launched: "
+                             f"{launches}")
+    if out["plain_calls_on_cuda"]:
+        raise AssertionError("plain versions ran on CUDA tensors")
+    if out["image_mean"] <= 0.0:
+        raise AssertionError(f"black image in {out['phase']}")
+
+
+def compare_paths(name, scene, cam, cfg, routes):
+    """One render through the kernels and one through the plain versions
     (swapped in for this comparison only), gated on aggregates."""
     from unittest import mock
 
     from bpt_tpu_torch.accel import api
-    from bpt_tpu_torch.integrators.bdpt import BDPTConfig, render_image
-    from bpt_tpu_torch.ops.trace_any import any_hit_plain
-    from bpt_tpu_torch.ops.trace_closest import closest_hit_plain
-    from bpt_tpu_torch.scene.procedural import cornell_box_scene
+    from bpt_tpu_torch.integrators.bdpt import render_image
 
-    w = SMALL["width"]
-    scene, _, cam = cornell_box_scene(w, w, device=device,
-                                      right_object="glass_sphere",
-                                      sphere_subdiv=3)
-    cfg = BDPTConfig(w, w, spp=SMALL["spp"], rr_depth=SMALL["rr_depth"])
+    t0 = time.perf_counter()
     a, na = render_image(scene, cam, cfg, seed=SEED)
-    with mock.patch.object(api, "closest_hit", closest_hit_plain), \
-            mock.patch.object(api, "any_hit", any_hit_plain):
+    with mock.patch.multiple(api, **routes):
         b, nb = render_image(scene, cam, cfg, seed=SEED)
     a, b = a.double(), b.double()
     denom = torch.clamp_min(b.abs(), 1e-3)
@@ -398,14 +656,42 @@ def phase_paths(device):
     mean_rel = abs(float(a.mean()) - float(b.mean())) / max(float(b.mean()),
                                                            1e-9)
     nr_rel = abs(na - nb) / max(nb, 1)
-    out = {"phase": "kernel_vs_plain_render", "config": "64x64 4spp rr5",
+    out = {"phase": "kernel_vs_plain_render", "case": name,
+           "config": f"{cfg.width}x{cfg.height} {cfg.spp}spp "
+                     f"rr{cfg.rr_depth}",
            "pixels_off_frac": frac_off, "mean_rel": mean_rel,
            "nrays": [na, nb], "nrays_rel": nr_rel,
            "finite": bool(torch.isfinite(a).all())}
-    emit(out)
+    emit(out, t0)
     if not (frac_off <= 0.02 and mean_rel <= 1e-3 and nr_rel <= 1e-3
             and out["finite"]):
-        raise AssertionError("kernel path and plain path disagree")
+        raise AssertionError(f"kernel path and plain path disagree ({name})")
+
+
+def phase_paths(device, large, cam_large):
+    from bpt_tpu_torch.core.camera import Camera
+    from bpt_tpu_torch.integrators.bdpt import BDPTConfig
+    from bpt_tpu_torch.ops import trace_any as ta
+    from bpt_tpu_torch.ops import trace_closest as tc
+    from bpt_tpu_torch.scene.procedural import cornell_box_scene
+
+    w = SMALL["width"]
+    scene, _, cam = cornell_box_scene(w, w, device=device,
+                                      right_object="glass_sphere",
+                                      sphere_subdiv=3)
+    compare_paths("bench scene, K1/K2", scene, cam,
+                  BDPTConfig(w, w, spp=SMALL["spp"],
+                             rr_depth=SMALL["rr_depth"]),
+                  dict(closest_hit=tc.closest_hit_plain,
+                       any_hit=ta.any_hit_plain))
+    w = SMALL_LARGE["width"]
+    cam = Camera.make(cam_large.o, cam_large.at, cam_large.up, cam_large.fov,
+                      w, w)
+    compare_paths("large scene, K3/K4", large, cam,
+                  BDPTConfig(w, w, spp=SMALL_LARGE["spp"],
+                             rr_depth=SMALL_LARGE["rr_depth"]),
+                  dict(closest_hit_stream=tc.closest_hit_stream_plain,
+                       any_hit_stream=ta.any_hit_stream_plain))
 
 
 def main():
@@ -417,30 +703,51 @@ def main():
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     info = phase_device()
+    smi = info["nvidia_smi"]
     scene, _, cam = bench_scene(device)
-    k1 = phase_k1(scene, cam, device)
     l = BENCH["rr_depth"] - 1
-    k2 = phase_k2(scene, device,
-                  l * (l + 2) * BENCH["width"] * BENCH["height"] * BENCH["sb"])
+    n_connect = l * (l + 2) * BENCH["width"] * BENCH["height"] * BENCH["sb"]
+    bench_rays = compacted_k1_inputs(scene, cam, device)
+    bench_segs = k2_inputs(scene, device, n_connect)
+    k1 = phase_k1(scene, bench_rays)
+    k2 = phase_k2(scene, bench_segs)
+    large, cfg_t = phase_large_scene(device)
+    large_rays = compacted_k1_inputs(large, cfg_t.camera, device)
+    large_segs = k2_inputs(large, device, n_connect)
+    k3 = phase_k3(large, large_rays, scene, bench_rays)
+    k4 = phase_k4(large, large_segs, scene, bench_segs)
+    # The renders' peak memory counts the scenes and the render only.
+    del large_rays, large_segs, bench_rays, bench_segs
     torch.cuda.empty_cache()
-    launches = phase_slice(scene, cam, device, info["nvidia_smi"])
-    phase_paths(device)
+
+    launches = phase_slice(scene, cam, device, smi)
+    launches.update({k: v for k, v in phase_slice_large(
+        large, cfg_t, device, smi).items() if k.startswith(("k3", "k4"))})
+    phase_paths(device, large, cfg_t.camera)
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     print(nvidia_smi_line(), flush=True)
-    emit({"kernels": [
-        {"name": "closest_hit", "route": "cuda",
-         "source": "bpt_tpu_torch/csrc/closest_hit.cu",
-         "replaces": "bpt_tpu/ops/pallas_trace.py:296",
-         "launches": launches["k1_closest_hit"], "max_abs_err": k1[2],
-         "ms": k1[0], "plain_ms": k1[1]},
-        {"name": "any_hit", "route": "cuda",
-         "source": "bpt_tpu_torch/csrc/any_hit.cu",
-         "replaces": "bpt_tpu/ops/pallas_sweep.py:216",
-         "launches": launches["k2_any_hit"], "max_abs_err": k2[2],
-         "flag_mismatch": k2[3], "ms": k2[0], "plain_ms": k2[1]},
-    ]})
+    kernels = [
+        ("closest_hit", "closest_hit.cu", "bpt_tpu/ops/pallas_trace.py:296",
+         "k1_closest_hit", k1),
+        ("any_hit", "any_hit.cu", "bpt_tpu/ops/pallas_sweep.py:216",
+         "k2_any_hit", k2),
+        ("closest_hit_stream", "closest_hit_stream.cu",
+         "bpt_tpu/ops/pallas_sweep.py:289", "k3_closest_hit_stream", k3),
+        ("any_hit_stream", "any_hit_stream.cu",
+         "bpt_tpu/ops/pallas_sweep.py:235", "k4_any_hit_stream", k4),
+    ]
+    rows = []
+    for name, src, replaces, count, res in kernels:
+        row = {"name": name, "route": "cuda",
+               "source": "bpt_tpu_torch/csrc/" + src, "replaces": replaces,
+               "launches": launches[count], "max_abs_err": res[2],
+               "ms": res[0], "plain_ms": res[1]}
+        if len(res) > 3:
+            row["flag_mismatch"] = res[3]
+        rows.append(row)
+    emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

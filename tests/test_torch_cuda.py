@@ -1,13 +1,16 @@
-"""The CUDA kernels K1 and K2 against their plain PyTorch versions on the
-card: bit-equal hits and equal occlusion flags.  These need an NVIDIA GPU
-with nvcc and skip without one; run them on the card with
+"""The CUDA kernels K1-K4 against their plain PyTorch versions on the
+card: bit-equal hits and equal occlusion flags; the streamed kernels K3
+and K4 also against K1 and K2.  These need an NVIDIA GPU with nvcc and
+skip without one; run them on the card with
 
-    python -m pytest tests/test_torch_cuda.py -q -m cuda
+    python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 """
 from __future__ import annotations
 
 import pytest
 import torch
+
+from bpt_tpu_torch.ops.intersect import STREAM_CHUNK
 
 pytestmark = pytest.mark.cuda
 
@@ -85,3 +88,91 @@ def test_kernel_render_matches_plain_render(cuda_scene):
         b, nb = render_image(cuda_scene, cam, cfg, seed=1)
     assert na == nb
     torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def cuda_subdiv5():
+    """The glass box at subdiv 5 (235 treelets): chunks of 8, 64 and
+    STREAM_CHUNK leave a ragged last chunk."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from bpt_tpu_torch.scene.procedural import cornell_box_scene
+
+    scene, _, _ = cornell_box_scene(16, 16, device="cuda",
+                                    right_object="glass_sphere",
+                                    sphere_subdiv=5)
+    return scene
+
+
+@pytest.mark.parametrize("chunk", [8, 64, STREAM_CHUNK])
+@pytest.mark.parametrize("n", [1, 1000, 65_536])
+def test_closest_stream_kernel_bit_equal_to_plain(cuda_subdiv5, n, chunk):
+    from bpt_tpu_torch.ops.trace_closest import closest_hit_stream, \
+        closest_hit_stream_plain
+
+    tg = cuda_subdiv5.treelets
+    args = _rays(n, seed=n + chunk)
+    launches = closest_hit_stream.launches
+    got = closest_hit_stream(tg, *args, chunk)
+    ref = closest_hit_stream_plain(tg, *args, chunk)
+    torch.cuda.synchronize()
+    assert closest_hit_stream.launches == launches + 1
+    assert torch.equal(got[1], ref[1])
+    for g, r in zip((got[0], got[2], got[3]), (ref[0], ref[2], ref[3])):
+        assert torch.equal(g.view(torch.int32), r.view(torch.int32))
+
+
+@pytest.mark.parametrize("chunk", [8, 64, STREAM_CHUNK])
+@pytest.mark.parametrize("n", [1, 1000, 65_536])
+def test_any_stream_kernel_equal_to_plain(cuda_subdiv5, n, chunk):
+    from bpt_tpu_torch.ops.trace_any import any_hit_stream, \
+        any_hit_stream_plain
+
+    tg = cuda_subdiv5.treelets_any
+    args = _rays(n, seed=n + chunk + 1, segment=True)
+    launches = any_hit_stream.launches
+    got = any_hit_stream(tg, *args, chunk)
+    ref = any_hit_stream_plain(tg, *args, chunk)
+    torch.cuda.synchronize()
+    assert any_hit_stream.launches == launches + 1
+    assert torch.equal(got, ref)
+
+
+def test_stream_kernels_match_k1_k2_on_the_bench_scene(cuda_scene):
+    """19 treelets in chunks of 8: K4's flags are K2's, K3's t is K1's on
+    every lane, and tri/u/v differ only where two triangles tie at the
+    same t (at most 2% of the lanes)."""
+    from bpt_tpu_torch.ops.trace_any import any_hit, any_hit_stream
+    from bpt_tpu_torch.ops.trace_closest import closest_hit, \
+        closest_hit_stream
+
+    args = _rays(65_536, seed=3)
+    got = closest_hit_stream(cuda_scene.treelets, *args, 8)
+    ref = closest_hit(cuda_scene.treelets, *args)
+    assert torch.equal(got[0].view(torch.int32), ref[0].view(torch.int32))
+    same = got[1] == ref[1]
+    assert float((~same).double().mean()) <= 0.02
+    for g, r in zip(got[2:], ref[2:]):
+        assert torch.equal(g[same].view(torch.int32),
+                           r[same].view(torch.int32))
+    seg = _rays(65_536, seed=4, segment=True)
+    assert torch.equal(any_hit_stream(cuda_scene.treelets_any, *seg, 8),
+                       any_hit(cuda_scene.treelets_any, *seg))
+
+
+def test_unstreamed_kernels_refuse_large_tables(cuda_subdiv5):
+    """K1/K2 take at most MAX_TREELETS treelets on the card; a larger
+    table raises instead of reaching a plain version."""
+    from bpt_tpu_torch.ops.intersect import MAX_TREELETS
+    from bpt_tpu_torch.ops.trace_any import any_hit
+    from bpt_tpu_torch.ops.trace_closest import closest_hit
+
+    tg = cuda_subdiv5.treelets
+    reps = MAX_TREELETS // tg.block.shape[0] + 1
+    big = type(tg)(*(x.repeat((reps,) + (1,) * (x.ndim - 1)).contiguous()
+                     for x in tg))
+    args = _rays(64, seed=5)
+    with pytest.raises(ValueError):
+        closest_hit(big, *args)
+    with pytest.raises(ValueError):
+        any_hit(big, *args)

@@ -54,14 +54,19 @@ def test_scene_from_arrays_round_trip():
 
 def test_port_runs_without_jax():
     """With `jax` unimportable, the port builds the glass box and renders
-    8x8 at 1 spp on the CPU.  Of the JAX package it loads only the
-    numpy host modules (BVH builder, treelet cut, OBJ records)."""
+    8x8 at 1 spp on the CPU, and goes through a scene file (export,
+    load_toml, load_scene).  Of the JAX package it loads only the numpy
+    host modules (BVH builder, treelet cut, OBJ records and export)."""
     code = textwrap.dedent("""
         import sys
+        import tempfile
         sys.modules["jax"] = None
         import torch
         import bpt_tpu_torch
+        from bpt_tpu_torch.scene.export import export_cornell_box
         from bpt_tpu_torch.scene.procedural import cornell_box_scene
+        from bpt_tpu_torch.scene.scene import load_scene
+        from bpt_tpu_torch.scene.toml_config import load_toml
         from bpt_tpu_torch.integrators.bdpt import BDPTConfig, render_image
         scene, _, cam = cornell_box_scene(
             8, 8, right_object="glass_sphere", sphere_subdiv=3)
@@ -69,9 +74,13 @@ def test_port_runs_without_jax():
                                                          rr_depth=3), seed=1)
         assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
         assert nrays > 0 and float(img.mean()) > 0.0
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = load_toml(export_cornell_box(tmp, 8, 8))
+            _, meta = load_scene(cfg.obj_file, "cpu")
+        assert meta.n_triangles > 0 and cfg.camera.width == 8
         host_only = {"bpt_tpu", "bpt_tpu.accel", "bpt_tpu.accel.build",
                      "bpt_tpu.accel.treelets", "bpt_tpu.scene",
-                     "bpt_tpu.scene.obj"}
+                     "bpt_tpu.scene.obj", "bpt_tpu.scene.export"}
         leaked = [m for m in sys.modules if (m == "bpt_tpu" or
                   m.startswith("bpt_tpu.")) and m not in host_only]
         assert not leaked, leaked
