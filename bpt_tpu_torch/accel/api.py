@@ -1,7 +1,10 @@
 """Scene-level tracing (port of bpt_tpu/accel/api.py).
 
-Both traces run behind live-lane compaction with spatial cluster keys
-(ops/compaction.py), then go by the treelet count of their table:
+A scene without a treelet table (`scene.treelets` is None) is traced by
+the stackless BVH walk of accel/traverse.py, without compaction, as the
+reference routes it.  Otherwise both traces run behind live-lane
+compaction with spatial cluster keys (ops/compaction.py), then go by the
+treelet count of their table:
 
   * NT <= MAX_TREELETS (2048): closest hit through K1
     (ops/trace_closest.py::closest_hit), any hit through K2
@@ -21,25 +24,14 @@ nothing else.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import torch
 
+from . import traverse
 from ..ops.compaction import compact_rays, uncompact, uncompact_many
 from ..ops.intersect import MAX_TREELETS, STREAM_CHUNK
 from ..ops.trace_any import any_hit, any_hit_stream
 from ..ops.trace_closest import closest_hit, closest_hit_stream
-
-
-class Hit(NamedTuple):
-    """Closest-hit record, (B,) each.  `tri` indexes the BVH-ordered
-    triangle arrays; -1 / valid=False on a miss."""
-
-    t: torch.Tensor
-    tri: torch.Tensor
-    u: torch.Tensor
-    v: torch.Tensor
-    valid: torch.Tensor
+from .traverse import Hit
 
 
 def scene_bounds(tg):
@@ -49,7 +41,9 @@ def scene_bounds(tg):
 
 def trace_closest(scene, o, d, min_t, max_t) -> Hit:
     """Closest hit of (B,) rays; min_t / max_t are (B,) tensors or floats."""
-    tg = scene.treelets
+    tg = getattr(scene, "treelets", None)
+    if tg is None:
+        return traverse.trace_closest(scene.geom, o, d, min_t, max_t)
     o_c, d_c, mn_c, mx_c, plan = compact_rays(
         o, d, min_t, max_t, bounds=scene_bounds(tg), kind="ray")
     args = (tg, o_c.contiguous(), d_c.contiguous(), mn_c, mx_c)
@@ -63,6 +57,8 @@ def trace_closest(scene, o, d, min_t, max_t) -> Hit:
 
 def trace_any(scene, o, d, min_t, max_t):
     """(B,) occlusion flags of segments; dead lanes are unoccluded."""
+    if getattr(scene, "treelets", None) is None:
+        return traverse.trace_any(scene.geom, o, d, min_t, max_t)
     tg = scene.treelets_any
     o_c, d_c, mn_c, mx_c, plan = compact_rays(
         o, d, min_t, max_t, bounds=scene_bounds(tg))

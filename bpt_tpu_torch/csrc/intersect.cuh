@@ -1,7 +1,9 @@
-// Device code shared by the four trace kernels (K1 closest_hit.cu, K2
-// any_hit.cu, K3 closest_hit_stream.cu, K4 any_hit_stream.cu): NaN-
-// propagating min/max, the slab test, Moeller-Trumbore, and the two
-// traversals of a range of treelets whose boxes sit in shared memory.
+// Device code shared by the seven trace kernels (K1 closest_hit.cu, K2
+// any_hit.cu, K3 closest_hit_stream.cu, K4 any_hit_stream.cu, K5
+// closest_hit_full.cu, K6 closest_hit_sweep.cu, K7 any_hit_compact.cu):
+// NaN-propagating min/max, the slab test, Moeller-Trumbore, the triangle
+// tests of one treelet, the two traversals of a range of treelets whose
+// boxes sit in shared memory, and a block-wide prefix count.
 //
 // Every kernel is built with -fmad=false and evaluates in the operation
 // order of bpt_tpu/ops/pallas_sweep.py:_slab and _mt_tile, as the plain
@@ -128,6 +130,25 @@ __device__ __forceinline__ void load_boxes(float* boxes,
   }
 }
 
+// Box j of the (NT, 3) bmin / bmax tables as (bmin xyz, bmax xyz), read
+// through the read-only cache.
+__device__ __forceinline__ void load_box(float* box,
+                                         const float* __restrict__ bmin,
+                                         const float* __restrict__ bmax,
+                                         int j) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    box[a] = __ldg(bmin + 3 * j + a);
+    box[3 + a] = __ldg(bmax + 3 * j + a);
+  }
+}
+
+// (e1, j1) < (e2, j2), entries compared as floats (so -0.0 equals +0.0):
+// the visit order of the closest-hit kernels.
+__device__ __forceinline__ bool key_less(float e1, int j1, float e2, int j2) {
+  return e1 < e2 || (e1 == e2 && j1 < j2);
+}
+
 struct Best {
   float t = INFINITY;
   int32_t tri = -1;
@@ -135,12 +156,31 @@ struct Best {
   float v = 0.f;
 };
 
+// The K triangles of treelet `row` against one ray, improving `best` in
+// place: a hit improves only on a strictly smaller t, so within the
+// treelet the lowest slot k wins an equal t.
+__device__ __forceinline__ void closest_in_treelet(
+    const float* __restrict__ block, const int32_t* __restrict__ tri_index,
+    int k, size_t row, const Ray& r, Best& best) {
+  const float* blk = block + row * 9 * k;
+  for (int kk = 0; kk < k; ++kk) {
+    float tt, uu, vv;
+    bool ok = moller_trumbore(blk, k, kk, r, &tt, &uu, &vv);
+    ok = ok && (tt >= r.mnt) && (tt <= nan_min(best.t, r.mxt));
+    if (ok && tt < best.t) {
+      best.t = tt;
+      best.tri = tri_index[row * k + kk];
+      best.u = uu;
+      best.v = vv;
+    }
+  }
+}
+
 // Closest hit over treelets [j0, j0 + n), boxes in shared memory,
 // improving `best` in place.  Treelets are visited in (entry, index)
 // order while entry < best.t: each step rescans the n boxes for the
 // lexicographic successor of the last visited (entry, j), so no per-lane
-// array is held.  A hit improves only on a strictly smaller t; within a
-// treelet the lowest slot wins an equal t.
+// array is held.
 __device__ __forceinline__ void closest_in_boxes(
     const float* boxes, int j0, int n, const float* __restrict__ block,
     const int32_t* __restrict__ tri_index, int k, const Ray& r,
@@ -154,7 +194,7 @@ __device__ __forceinline__ void closest_in_boxes(
       float e;
       if (!slab(&boxes[j * 6], r, &e)) continue;
       if (!(e < best.t)) continue;
-      if (e < prev_e || (e == prev_e && j <= prev_j)) continue;
+      if (!key_less(prev_e, prev_j, e, j)) continue;
       if (e < best_e) {
         best_e = e;
         best_j = j;
@@ -163,21 +203,21 @@ __device__ __forceinline__ void closest_in_boxes(
     if (best_j < 0) return;
     prev_e = best_e;
     prev_j = best_j;
-
-    const size_t row = (size_t)(j0 + best_j);
-    const float* blk = block + row * 9 * k;
-    for (int kk = 0; kk < k; ++kk) {
-      float tt, uu, vv;
-      bool ok = moller_trumbore(blk, k, kk, r, &tt, &uu, &vv);
-      ok = ok && (tt >= r.mnt) && (tt <= nan_min(best.t, r.mxt));
-      if (ok && tt < best.t) {
-        best.t = tt;
-        best.tri = tri_index[row * k + kk];
-        best.u = uu;
-        best.v = vv;
-      }
-    }
+    closest_in_treelet(block, tri_index, k, (size_t)(j0 + best_j), r, best);
   }
+}
+
+// True at the first of treelet `row`'s triangles that the ray hits with
+// t in [min_t, max_t].
+__device__ __forceinline__ bool any_in_treelet(
+    const float* __restrict__ block, int k, size_t row, const Ray& r) {
+  const float* blk = block + row * 9 * k;
+  for (int kk = 0; kk < k; ++kk) {
+    float tt, uu, vv;
+    const bool ok = moller_trumbore(blk, k, kk, r, &tt, &uu, &vv);
+    if (ok && (tt >= r.mnt) && (tt <= r.mxt)) return true;
+  }
+  return false;
 }
 
 // Occlusion over treelets [j0, j0 + n), boxes in shared memory, in index
@@ -189,14 +229,33 @@ __device__ __forceinline__ bool any_in_boxes(const float* boxes, int j0,
   for (int j = 0; j < n; ++j) {
     float e;
     if (!slab(&boxes[j * 6], r, &e)) continue;
-    const float* blk = block + (size_t)(j0 + j) * 9 * k;
-    for (int kk = 0; kk < k; ++kk) {
-      float tt, uu, vv;
-      const bool ok = moller_trumbore(blk, k, kk, r, &tt, &uu, &vv);
-      if (ok && (tt >= r.mnt) && (tt <= r.mxt)) return true;
-    }
+    if (any_in_treelet(block, k, (size_t)(j0 + j), r)) return true;
   }
   return false;
+}
+
+// Exclusive prefix count of `flag` over the kThreads threads of the block
+// in thread order; *total gets the block's count.  Every thread of the
+// block must call it (it holds two barriers); `warp_counts` is shared
+// scratch of kThreads / 32 ints.
+__device__ __forceinline__ int block_prefix_count(bool flag,
+                                                  int* warp_counts,
+                                                  int* total) {
+  const unsigned ballot = __ballot_sync(0xffffffffu, flag);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) warp_counts[warp] = __popc(ballot);
+  __syncthreads();
+  int before = __popc(ballot & ((1u << lane) - 1u));
+  int sum = 0;
+  for (int w = 0; w < kThreads / 32; ++w) {
+    const int c = warp_counts[w];
+    if (w < warp) before += c;
+    sum += c;
+  }
+  __syncthreads();  // warp_counts is free for the next call
+  *total = sum;
+  return before;
 }
 
 }  // namespace bpt

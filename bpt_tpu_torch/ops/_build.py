@@ -30,7 +30,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("closest_hit.cu", "any_hit.cu", "closest_hit_stream.cu",
-           "any_hit_stream.cu")
+           "any_hit_stream.cu", "closest_hit_full.cu",
+           "closest_hit_sweep.cu", "any_hit_compact.cu")
 HEADERS = ("intersect.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
@@ -38,13 +39,17 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# bmin, bmax, block, tri_index, nt, k, o, d, min_t, max_t, b,
+# t, tri, u, v, stream
+_CLOSEST = (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P)
+# bmin, bmax, block, nt, k, o, d, min_t, max_t, b, occ, stream
+_ANY = (_P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P)
 _SIGNATURES = {
-    # bmin, bmax, block, tri_index, nt, k, o, d, min_t, max_t, b,
-    # t, tri, u, v, stream
-    "bpt_closest_hit": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I,
-                        _P, _P, _P, _P, _P),
-    # bmin, bmax, block, nt, k, o, d, min_t, max_t, b, occ, stream
-    "bpt_any_hit": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P),
+    "bpt_closest_hit": _CLOSEST,
+    "bpt_closest_hit_full": _CLOSEST,
+    "bpt_closest_hit_sweep": _CLOSEST,
+    "bpt_any_hit": _ANY,
+    "bpt_any_hit_compact": _ANY,
     # bmin, bmax, block, tri_index, nt, k, chunk, o, d, min_t, max_t, b,
     # t, tri, u, v, stream
     "bpt_closest_hit_stream": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,

@@ -23,7 +23,9 @@ STREAM_CHUNK = 256
 SLAB_ELEMS = 1 << 26
 
 
-def _inv(c):
+def safe_inv(c):
+    """1/c with the reference's +-1e-20 floor on |c| (traverse.py
+    `_safe_inv`), so slab tests stay NaN-free."""
     sign = torch.where(c < 0, -1.0, 1.0).to(c.dtype)
     return sign / torch.clamp_min(torch.abs(c), 1e-20)
 
@@ -35,7 +37,7 @@ def slab(bmin, bmax, o, d, min_t, max_t):
     tnear = torch.full((b, nt), -torch.inf, dtype=o.dtype, device=o.device)
     tfar = torch.full((b, nt), torch.inf, dtype=o.dtype, device=o.device)
     for axis in range(3):
-        ic = _inv(d[:, axis])[:, None]
+        ic = safe_inv(d[:, axis])[:, None]
         oc = o[:, axis, None]
         t1 = (bmin[None, :, axis] - oc) * ic
         t2 = (bmax[None, :, axis] - oc) * ic

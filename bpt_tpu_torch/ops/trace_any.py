@@ -1,4 +1,4 @@
-"""K2 and K4: occlusion (any hit) over the treelet table.
+"""K2, K4 and K7: occlusion (any hit) over the treelet table.
 
 K2 (`any_hit`, kernel bpt_tpu_torch/csrc/any_hit.cu) replaces the TPU
 kernel bpt_tpu/ops/pallas_sweep.py::trace_any_sweep and takes tables of
@@ -6,6 +6,10 @@ at most MAX_TREELETS treelets.  K4 (`any_hit_stream`, kernel
 bpt_tpu_torch/csrc/any_hit_stream.cu) replaces
 bpt_tpu/ops/pallas_sweep.py::trace_any_stream: the same flags with the
 table taken in chunks of `chunk_nt` treelets, for tables of any size.
+K7 (`any_hit_compact`, csrc/any_hit_compact.cu) replaces
+bpt_tpu/ops/pallas_trace.py::trace_any_compact: the same flags, with
+each tile of lanes walking only the compacted union of the treelets its
+lanes overlap.
 
 Each wrapper runs its plain PyTorch version for tensors on the CPU and
 launches its kernel for CUDA tensors, or raises.  `<wrapper>.launches`
@@ -78,6 +82,18 @@ def any_hit_stream_plain(tg, o, d, min_t, max_t, chunk_nt):
 any_hit_stream_plain.cuda_calls = 0
 
 
+def any_hit_compact_plain(tg, o, d, min_t, max_t):
+    """Plain PyTorch version of K7.  The flags do not depend on the order
+    in which treelets are tested, so this is K2's function: the whole
+    table as one chunk."""
+    if o.is_cuda:
+        any_hit_compact_plain.cuda_calls += 1
+    return _any_chunks(tg, o, d, min_t, max_t, max(tg.block.shape[0], 1))
+
+
+any_hit_compact_plain.cuda_calls = 0
+
+
 def any_hit(tg, o, d, min_t, max_t):
     """K2: occlusion flags (B,) bool of segments (B, 3) with (B,) windows
     against a table of at most MAX_TREELETS treelets."""
@@ -116,3 +132,24 @@ def any_hit_stream(tg, o, d, min_t, max_t, chunk_nt):
 
 
 any_hit_stream.launches = 0
+
+
+def any_hit_compact(tg, o, d, min_t, max_t):
+    """K7, the counterpart of the TPU kernel trace_any_compact: occlusion
+    flags (B,) bool, equal to K2's, computed by tiles of lanes over the
+    compacted union of their treelets.  At most MAX_TREELETS treelets."""
+    b, nt, k = check_trace_args(tg, o, d, min_t, max_t)
+    if o.device.type == "cpu":
+        return any_hit_compact_plain(tg, o, d, min_t, max_t)
+    occ = torch.empty((b,), dtype=torch.bool, device=o.device)
+    if b == 0:
+        return occ
+    _build.launch("bpt_any_hit_compact", o.device, tg.bmin.data_ptr(),
+                  tg.bmax.data_ptr(), tg.block.data_ptr(), nt, k,
+                  o.data_ptr(), d.data_ptr(), min_t.data_ptr(),
+                  max_t.data_ptr(), b, occ.data_ptr())
+    any_hit_compact.launches += 1
+    return occ
+
+
+any_hit_compact.launches = 0

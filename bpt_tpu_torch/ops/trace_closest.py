@@ -1,4 +1,4 @@
-"""K1 and K3: closest hit over the treelet table.
+"""K1, K3, K5 and K6: closest hit over the treelet table.
 
 K1 (`closest_hit`, kernel bpt_tpu_torch/csrc/closest_hit.cu) replaces the
 TPU kernel bpt_tpu/ops/pallas_trace.py::trace_closest_compact and takes
@@ -6,16 +6,24 @@ tables of at most MAX_TREELETS treelets.  K3 (`closest_hit_stream`,
 kernel bpt_tpu_torch/csrc/closest_hit_stream.cu) replaces
 bpt_tpu/ops/pallas_sweep.py::trace_closest_stream: the same closest hit
 with the table taken in chunks of `chunk_nt` treelets, the best hit
-carried from chunk to chunk, for tables of any size.
+carried from chunk to chunk, for tables of any size.  K5
+(`closest_hit_full`, csrc/closest_hit_full.cu) replaces
+pallas_trace.py::trace_closest_pallas: K1's function, with each ray's
+entries computed once into a candidate list.  K6 (`closest_hit_sweep`,
+csrc/closest_hit_sweep.cu) replaces pallas_sweep.py::trace_closest_sweep:
+one visit order shared by a tile of SWEEP_TILE lanes.
 
 Each wrapper runs its plain PyTorch version for tensors on the CPU and
 launches its kernel for CUDA tensors, or raises.  `<wrapper>.launches`
 counts kernel launches; `<plain>.cuda_calls` counts calls of a plain
 version with CUDA tensors (a comparison harness, never a route).
 
-One tie rule: chunks in index order (K1 is the one-chunk case); within a
-chunk treelets in (entry, index) order while entry < t_best, strict `<`
-to improve, lowest slot k on an equal t.  A miss or dead lane gives
+One tie rule: chunks in index order (K1 and K5 are the one-chunk case);
+within a chunk treelets in (entry, index) order while entry < t_best,
+strict `<` to improve, lowest slot k on an equal t.  K6 differs only in
+the order: a tile visits treelets by (tile-minimum entry, index), so
+where two triangles of different treelets give exactly the same t, K6
+keeps the one its tile reached first.  A miss or dead lane gives
 (inf, -1, 0, 0).
 """
 from __future__ import annotations
@@ -25,6 +33,9 @@ import torch
 from . import _build
 from .intersect import SLAB_ELEMS, check_trace_args, moller_trumbore, slab
 
+# Lanes per tile of K6: one CUDA block (csrc/intersect.cuh kThreads) and
+# the reference's tile (pallas_sweep.py TILE).  Part of K6's function.
+SWEEP_TILE = 128
 # Lanes per triangle-test step of the plain versions (bounds their (n, K)
 # temporaries).
 _PLAIN_CHUNK = 1 << 16
@@ -33,15 +44,9 @@ _PLAIN_CHUNK = 1 << 16
 def _closest_chunks(tg, o, d, min_t, max_t, chunk_nt):
     """The plain closest hit, chunk by chunk; temporaries are at most
     (SLAB_ELEMS / chunk_nt lanes, chunk_nt)."""
-    b = o.shape[0]
-    nt, _, k = tg.block.shape
-    dev = o.device
-    t_best = torch.full((b,), torch.inf, dtype=torch.float32, device=dev)
-    tri_best = torch.full((b,), -1, dtype=torch.int32, device=dev)
-    u_best = torch.zeros((b,), dtype=torch.float32, device=dev)
-    v_best = torch.zeros((b,), dtype=torch.float32, device=dev)
+    nt = tg.block.shape[0]
+    best = _miss(o.shape[0], o.device)
     live = torch.nonzero(max_t >= min_t).squeeze(1)
-    slots = torch.arange(k, device=dev)
     lanes = max(1, SLAB_ELEMS // chunk_nt)
     for c0 in range(0, nt, chunk_nt):
         c1 = min(c0 + chunk_nt, nt)
@@ -54,29 +59,46 @@ def _closest_chunks(tg, o, d, min_t, max_t, chunk_nt):
             for r in range(c1 - c0):
                 # Entries are sorted and t_best only shrinks, so once no
                 # lane is active at rank r none is at a later rank.
-                act = torch.nonzero(entry_s[:, r] < t_best[ln]).squeeze(1)
+                act = torch.nonzero(entry_s[:, r] < best[0][ln]).squeeze(1)
                 if act.numel() == 0:
                     break
-                for s in range(0, act.numel(), _PLAIN_CHUNK):
-                    ai = act[s:s + _PLAIN_CHUNK]
-                    a = ln[ai]
-                    j = order[ai, r] + c0
-                    ok, tt, uu, vv = moller_trumbore(tg.block[j], o[a], d[a])
-                    tb = t_best[a]
-                    t_hi = torch.minimum(tb, max_t[a])
-                    ok &= (tt >= min_t[a, None]) & (tt <= t_hi[:, None])
-                    t_m = torch.where(ok, tt, torch.full_like(tt, torch.inf))
-                    t_new = torch.amin(t_m, dim=1)
-                    kk = torch.where(t_m == t_new[:, None], slots,
-                                     k).amin(dim=1)
-                    improved = t_new < tb
-                    a, j, kk = a[improved], j[improved], kk[improved]
-                    rows = torch.nonzero(improved).squeeze(1)
-                    t_best[a] = t_new[improved]
-                    tri_best[a] = tg.tri_index[j, kk]
-                    u_best[a] = uu[rows, kk]
-                    v_best[a] = vv[rows, kk]
-    return t_best, tri_best, u_best, v_best
+                _visit(tg, o, d, min_t, max_t, ln[act], order[act, r] + c0,
+                       best)
+    return best
+
+
+def _miss(b, device):
+    return (torch.full((b,), torch.inf, dtype=torch.float32, device=device),
+            torch.full((b,), -1, dtype=torch.int32, device=device),
+            torch.zeros((b,), dtype=torch.float32, device=device),
+            torch.zeros((b,), dtype=torch.float32, device=device))
+
+
+def _visit(tg, o, d, min_t, max_t, lanes, rows, best):
+    """Test lanes `lanes` against treelets `rows` ((n,) each) and improve
+    `best` = (t, tri, u, v) in place: the lowest t of the treelet wins,
+    the lowest slot an equal t, and it replaces the best hit only if
+    strictly nearer."""
+    t_best, tri_best, u_best, v_best = best
+    k = tg.block.shape[2]
+    slots = torch.arange(k, device=o.device)
+    for s in range(0, lanes.numel(), _PLAIN_CHUNK):
+        a = lanes[s:s + _PLAIN_CHUNK]
+        j = rows[s:s + _PLAIN_CHUNK]
+        ok, tt, uu, vv = moller_trumbore(tg.block[j], o[a], d[a])
+        tb = t_best[a]
+        t_hi = torch.minimum(tb, max_t[a])
+        ok &= (tt >= min_t[a, None]) & (tt <= t_hi[:, None])
+        t_m = torch.where(ok, tt, torch.full_like(tt, torch.inf))
+        t_new = torch.amin(t_m, dim=1)
+        kk = torch.where(t_m == t_new[:, None], slots, k).amin(dim=1)
+        improved = t_new < tb
+        a, j, kk = a[improved], j[improved], kk[improved]
+        i = torch.nonzero(improved).squeeze(1)
+        t_best[a] = t_new[improved]
+        tri_best[a] = tg.tri_index[j, kk]
+        u_best[a] = uu[i, kk]
+        v_best[a] = vv[i, kk]
 
 
 def closest_hit_plain(tg, o, d, min_t, max_t):
@@ -100,11 +122,90 @@ def closest_hit_stream_plain(tg, o, d, min_t, max_t, chunk_nt):
 closest_hit_stream_plain.cuda_calls = 0
 
 
+def closest_hit_full_plain(tg, o, d, min_t, max_t):
+    """Plain PyTorch version of K5: K1's function, the whole table as one
+    chunk."""
+    if o.is_cuda:
+        closest_hit_full_plain.cuda_calls += 1
+    return _closest_chunks(tg, o, d, min_t, max_t, max(tg.block.shape[0], 1))
+
+
+closest_hit_full_plain.cuda_calls = 0
+
+
+def closest_hit_sweep_plain(tg, o, d, min_t, max_t):
+    """Plain PyTorch version of K6, vectorised over tiles of SWEEP_TILE
+    consecutive lanes (the last one padded with lanes that overlap
+    nothing).
+
+    A tile visits the treelets any of its lanes overlaps (dead lanes
+    included, as in the reference) in (tile-minimum entry, index) order;
+    a live lane tests a visited treelet when its own entry is below its
+    t_best.  Removing a visited treelet leaves the other tile minima as
+    they are, so the order is one sort per tile.  Tiles go in groups of
+    at most SLAB_ELEMS (lane, treelet) entries."""
+    if o.is_cuda:
+        closest_hit_sweep_plain.cuda_calls += 1
+    b = o.shape[0]
+    nt = tg.block.shape[0]
+    dev = o.device
+    best = _miss(b, dev)
+    if b == 0 or nt == 0:
+        return best
+    live = max_t >= min_t
+    group = max(1, SLAB_ELEMS // (SWEEP_TILE * nt)) * SWEEP_TILE
+    for g0 in range(0, b, group):
+        g1 = min(g0 + group, b)
+        n_tiles = -(-(g1 - g0) // SWEEP_TILE)
+        pad = n_tiles * SWEEP_TILE - (g1 - g0)
+        _, entry = slab(tg.bmin, tg.bmax, o[g0:g1], d[g0:g1], min_t[g0:g1],
+                        max_t[g0:g1])
+        # +0.0 turns a -0.0 entry into +0.0, as the kernel does before its
+        # integer atomicMin.
+        entry = torch.cat([entry + 0.0, torch.full((pad, nt), torch.inf,
+                                                   device=dev)])
+        entry = entry.view(n_tiles, SWEEP_TILE, nt)
+        key, order = torch.sort(entry.amin(dim=1), dim=1, stable=True)
+        steps = int(torch.isfinite(key).sum(dim=1).max())
+        lane = g0 + torch.arange(n_tiles * SWEEP_TILE, device=dev)
+        ok_lane = torch.cat([live[g0:g1],
+                             torch.zeros((pad,), dtype=torch.bool,
+                                         device=dev)])
+        for r in range(steps):
+            j = order[:, r]
+            e = entry.gather(2, j[:, None, None].expand(-1, SWEEP_TILE, 1))
+            t_best = torch.cat([best[0][g0:g1],
+                                torch.full((pad,), torch.inf, device=dev)])
+            # Later entries of a lane are no nearer than this tile minimum.
+            if not bool((ok_lane & (t_best > key[:, r].repeat_interleave(
+                    SWEEP_TILE))).any()):
+                break
+            act = torch.nonzero(ok_lane & (e.view(-1) < t_best)).squeeze(1)
+            if act.numel():
+                _visit(tg, o, d, min_t, max_t, lane[act],
+                       j[act // SWEEP_TILE], best)
+    return best
+
+
+closest_hit_sweep_plain.cuda_calls = 0
+
+
 def _outputs(b, device):
     return (torch.empty((b,), dtype=torch.float32, device=device),
             torch.empty((b,), dtype=torch.int32, device=device),
             torch.empty((b,), dtype=torch.float32, device=device),
             torch.empty((b,), dtype=torch.float32, device=device))
+
+
+def _launch_closest(name, tg, o, d, min_t, max_t, b, nt, k):
+    """Launch a closest-hit kernel with K1's C interface."""
+    out = _outputs(b, o.device)
+    if b:
+        _build.launch(name, o.device, tg.bmin.data_ptr(), tg.bmax.data_ptr(),
+                      tg.block.data_ptr(), tg.tri_index.data_ptr(), nt, k,
+                      o.data_ptr(), d.data_ptr(), min_t.data_ptr(),
+                      max_t.data_ptr(), b, *(x.data_ptr() for x in out))
+    return out
 
 
 def closest_hit(tg, o, d, min_t, max_t):
@@ -113,15 +214,9 @@ def closest_hit(tg, o, d, min_t, max_t):
     b, nt, k = check_trace_args(tg, o, d, min_t, max_t)
     if o.device.type == "cpu":
         return closest_hit_plain(tg, o, d, min_t, max_t)
-    out = _outputs(b, o.device)
-    if b == 0:
-        return out
-    _build.launch("bpt_closest_hit", o.device, tg.bmin.data_ptr(),
-                  tg.bmax.data_ptr(), tg.block.data_ptr(),
-                  tg.tri_index.data_ptr(), nt, k, o.data_ptr(), d.data_ptr(),
-                  min_t.data_ptr(), max_t.data_ptr(), b,
-                  *(x.data_ptr() for x in out))
-    closest_hit.launches += 1
+    out = _launch_closest("bpt_closest_hit", tg, o, d, min_t, max_t, b, nt,
+                          k)
+    closest_hit.launches += int(b > 0)
     return out
 
 
@@ -148,3 +243,36 @@ def closest_hit_stream(tg, o, d, min_t, max_t, chunk_nt):
 
 
 closest_hit_stream.launches = 0
+
+
+def closest_hit_full(tg, o, d, min_t, max_t):
+    """K5, the counterpart of the TPU kernel trace_closest_pallas: K1's
+    closest hit, bit for bit, with each ray's treelet entries computed
+    once into a candidate list.  At most MAX_TREELETS treelets.  Returns
+    (t, tri, u, v), each (B,)."""
+    b, nt, k = check_trace_args(tg, o, d, min_t, max_t)
+    if o.device.type == "cpu":
+        return closest_hit_full_plain(tg, o, d, min_t, max_t)
+    out = _launch_closest("bpt_closest_hit_full", tg, o, d, min_t, max_t, b,
+                          nt, k)
+    closest_hit_full.launches += int(b > 0)
+    return out
+
+
+closest_hit_full.launches = 0
+
+
+def closest_hit_sweep(tg, o, d, min_t, max_t):
+    """K6, the counterpart of the TPU kernel trace_closest_sweep: closest
+    hit with one treelet order per tile of SWEEP_TILE consecutive lanes.
+    At most MAX_TREELETS treelets.  Returns (t, tri, u, v), each (B,)."""
+    b, nt, k = check_trace_args(tg, o, d, min_t, max_t)
+    if o.device.type == "cpu":
+        return closest_hit_sweep_plain(tg, o, d, min_t, max_t)
+    out = _launch_closest("bpt_closest_hit_sweep", tg, o, d, min_t, max_t,
+                          b, nt, k)
+    closest_hit_sweep.launches += int(b > 0)
+    return out
+
+
+closest_hit_sweep.launches = 0

@@ -2,19 +2,26 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from bpt_tpu_torch/csrc/ and checks each
-one against its plain PyTorch version at the main paths' shapes.  Two
-paths are driven through `render_chunk` (256x256, rr_depth 8, 2 samples
-per batch, seed 7):
+Builds the port's seven CUDA kernels from bpt_tpu_torch/csrc/ and checks
+each one against its plain PyTorch version at the main paths' shapes:
+K1-K4 as the routes of `accel/api.py` use them, and K5 (full-table
+closest hit), K6 (tile-sweep closest hit) and K7 (compact-table any hit)
+on the bench scene (19 treelets) and on the glass box with a subdiv-6
+sphere (923 treelets), where K5 also holds to K1, K6's t to K1's and K7
+to K2.  Four paths are driven through `render_chunk` (256x256, rr_depth
+8, 2 samples per batch, seed 7, 16 spp):
 
   * the bench configuration: the procedural glass Cornell box (19
-    treelets), traced by K1 (closest hit) and K2 (any hit), 16 spp;
+    treelets), traced by K1 (closest hit) and K2 (any hit);
+  * the same with K5 and K7 in place of K1 and K2, and with K6 in place
+    of K1 (the routes swapped with mock.patch), each held to the K1/K2
+    render;
   * the large scene: the glass box with a subdiv-7 sphere (327,704
     triangles, 3,656 treelets) written as a scene file (TOML + OBJ/MTL)
     and read back through `load_toml` and `load_scene`, traced by the
-    streamed kernels K3 and K4, 16 spp.
+    streamed kernels K3 and K4.
 
-Each kernel's launch count is reset just before its path runs and read
+Each kernel's launch count is reset just before each path runs and read
 just after.  A small render through the kernels is compared with one
 through the plain versions on each scene.  One JSON line per phase, each
 with its `elapsed_s`; the second-to-last lines are the card's
@@ -40,6 +47,9 @@ BENCH = dict(width=256, height=256, spp=16, rr_depth=8, sb=2)
 SMALL = dict(width=64, height=64, spp=4, rr_depth=5)
 LARGE = dict(sphere_subdiv=7, n_triangles=327_704, n_treelets=3_656)
 SMALL_LARGE = dict(width=32, height=32, spp=2, rr_depth=4)
+# The second table of K5-K7: more treelets than a candidate buffer (K5)
+# or a compaction round (K7) holds.
+SUBDIV6 = dict(sphere_subdiv=6, n_treelets=923)
 # The bench scene's 19 treelets in chunks of 8: three chunks, the last
 # one ragged.
 BENCH_CHUNK = 8
@@ -62,10 +72,10 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=REPS):
-    """Mean device time of fn() in ms over `reps` calls, CUDA events,
-    after one warm-up call."""
-    fn()
+def run_timed(fn, reps):
+    """(the result of a first call of fn, the mean device time in ms of
+    `reps` more calls, CUDA events)."""
+    out = fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -74,14 +84,21 @@ def cuda_ms(fn, reps=REPS):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return out, start.elapsed_time(end) / reps
 
 
-def bench_scene(device):
+def cuda_ms(fn, reps=REPS):
+    """Mean device time of fn() in ms over `reps` calls, CUDA events,
+    after one warm-up call."""
+    return run_timed(fn, reps)[1]
+
+
+def bench_scene(device, sphere_subdiv=3):
     from bpt_tpu_torch.scene.procedural import cornell_box_scene
 
     return cornell_box_scene(BENCH["width"], BENCH["height"], device=device,
-                             right_object="glass_sphere", sphere_subdiv=3)
+                             right_object="glass_sphere",
+                             sphere_subdiv=sphere_subdiv)
 
 
 def _uniform(gen, shape, device):
@@ -418,10 +435,102 @@ def phase_k4(large, large_segs, bench, bench_segs):
     return k_ms, p_ms, flag_err, bad
 
 
+def phase_closest_kernel(phase, kernel, plain, tables, exact_vs_k1):
+    """A closest-hit kernel (K5 or K6) against its plain version, bit for
+    bit, and against K1 (the same t on every lane; with `exact_vs_k1` the
+    same tri too) on each table at the slice's closest-hit shapes."""
+    from bpt_tpu_torch.ops.trace_closest import closest_hit
+
+    t0 = time.perf_counter()
+    out = {"phase": phase}
+    timing = None
+    failed = []
+    for tname, tg, rays in tables:
+        for name, args in rays.items():
+            got, k_ms = run_timed(lambda: kernel(tg, *args), REPS)
+            ref, p_ms = run_timed(lambda: plain(tg, *args), 1)
+            k1, k1_ms = run_timed(lambda: closest_hit(tg, *args), REPS)
+            rep = closest_report(got, ref)
+            same = got[1] == k1[1]
+            res = {"n_treelets": tg.block.shape[0], "lanes": args[0].shape[0],
+                   "live": int((args[3] >= args[2]).sum()),
+                   "hits": int((ref[1] >= 0).sum()), **rep, "ms": k_ms,
+                   "plain_ms": p_ms, "k1_ms": k1_ms,
+                   "t_bit_mismatch_vs_k1": bit_mismatch(got[0], k1[0]),
+                   # t is K1's on every lane, so each of these lanes is a
+                   # tie at exactly the same t.
+                   "tri_mismatch_vs_k1_exact_t_ties": int((~same).sum()),
+                   "u_v_bit_mismatch_vs_k1_same_tri": [
+                       bit_mismatch(got[i][same], k1[i][same])
+                       for i in (2, 3)]}
+            out[f"{tname}_{name}"] = res
+            if (rep["tri_mismatch"] or any(rep["t_u_v_bit_mismatch"])
+                    or res["t_bit_mismatch_vs_k1"]
+                    or any(res["u_v_bit_mismatch_vs_k1_same_tri"])
+                    or (exact_vs_k1
+                        and res["tri_mismatch_vs_k1_exact_t_ties"])):
+                failed.append(f"{tname}_{name}")
+            if (tname, name) == ("bench", "walk"):
+                timing = (k_ms, p_ms, rep["max_abs_err"])
+    emit(out, t0)
+    if failed:
+        raise AssertionError(f"{phase} disagrees on {failed}")
+    return timing
+
+
+def phase_k7(tables):
+    """K7 against its plain version and K2, flag for flag, on each table
+    at the slice's any-hit shape."""
+    from bpt_tpu_torch.ops.trace_any import any_hit, any_hit_compact, \
+        any_hit_compact_plain
+
+    t0 = time.perf_counter()
+    out = {"phase": "k7_any_hit_compact"}
+    timing = None
+    failed = []
+    for tname, tg, (o, d, mn, mx) in tables:
+        got, k_ms = run_timed(lambda: any_hit_compact(tg, o, d, mn, mx), REPS)
+        ref, p_ms = run_timed(lambda: any_hit_compact_plain(tg, o, d, mn, mx),
+                              1)
+        k2, k2_ms = run_timed(lambda: any_hit(tg, o, d, mn, mx), REPS)
+        bad = int((got != ref).sum())
+        res = {"n_treelets": tg.block.shape[0], "lanes": o.shape[0],
+               "live": int((mx >= mn).sum()), "occluded": int(ref.sum()),
+               "flag_mismatch": bad,
+               "flag_mismatch_vs_k2": int((got != k2).sum()),
+               "ms": k_ms, "plain_ms": p_ms, "k2_ms": k2_ms}
+        out[tname] = res
+        if bad or res["flag_mismatch_vs_k2"]:
+            failed.append(tname)
+        if tname == "bench":
+            timing = (k_ms, p_ms, float((got.int() - ref.int()).abs().max()),
+                      bad)
+    emit(out, t0)
+    if failed:
+        raise AssertionError(f"K7 disagrees on {failed}")
+    return timing
+
+
+def phase_subdiv6(device):
+    t0 = time.perf_counter()
+    scene, meta, _ = bench_scene(device, SUBDIV6["sphere_subdiv"])
+    torch.cuda.synchronize()
+    nt = scene.treelets.block.shape[0]
+    emit({"phase": "subdiv6_scene", "n_triangles": meta.n_triangles,
+          "n_treelets": nt}, t0)
+    if nt != SUBDIV6["n_treelets"]:
+        raise AssertionError(f"the subdiv-6 glass box has {nt} treelets, "
+                             f"not {SUBDIV6['n_treelets']}")
+    return scene
+
+
 _KERNEL_GROUPS = (("k3_closest_hit_stream", "closest_hit_stream_kernel"),
                   ("k4_any_hit_stream", "any_hit_stream_kernel"),
                   ("k1_closest_hit", "closest_hit_kernel"),
-                  ("k2_any_hit", "any_hit_kernel"))
+                  ("k2_any_hit", "any_hit_kernel"),
+                  ("k5_closest_hit_full", "closest_hit_full_kernel"),
+                  ("k6_closest_hit_sweep", "closest_hit_sweep_kernel"),
+                  ("k7_any_hit_compact", "any_hit_compact_kernel"))
 
 
 def _profile_batch(scene, cam_consts, cfg, key, batch_wall_s):
@@ -483,9 +592,14 @@ def _counters():
     launches = {"k1_closest_hit": tc.closest_hit,
                 "k2_any_hit": ta.any_hit,
                 "k3_closest_hit_stream": tc.closest_hit_stream,
-                "k4_any_hit_stream": ta.any_hit_stream}
+                "k4_any_hit_stream": ta.any_hit_stream,
+                "k5_closest_hit_full": tc.closest_hit_full,
+                "k6_closest_hit_sweep": tc.closest_hit_sweep,
+                "k7_any_hit_compact": ta.any_hit_compact}
     plains = (tc.closest_hit_plain, ta.any_hit_plain,
-              tc.closest_hit_stream_plain, ta.any_hit_stream_plain)
+              tc.closest_hit_stream_plain, ta.any_hit_stream_plain,
+              tc.closest_hit_full_plain, tc.closest_hit_sweep_plain,
+              ta.any_hit_compact_plain)
     return launches, plains
 
 
@@ -568,8 +682,86 @@ def phase_slice(scene, cam, device, smi):
     out.update(_profile_batch(scene, cam_consts, cfg, key,
                               wall_med / batches))
     emit(out, t0)
-    check_render(out, used=("k1_closest_hit", "k2_any_hit"),
-                 unused=("k3_closest_hit_stream", "k4_any_hit_stream"))
+    check_render(out, used=("k1_closest_hit", "k2_any_hit"))
+    return launches, fb, out
+
+
+def phase_slice_routed(phase, scene, cam, device, smi, routes, counts, base,
+                       exact):
+    """The bench configuration with `routes` swapped into accel/api.py
+    (mock.patch in this script; the package has no switch), held to the
+    K1/K2 slice `base` = (its image, its phase line).  `counts` maps each
+    kernel of this path to the kernel of the K1/K2 slice whose launch
+    count it must equal.  With `exact` (the same function as the K1/K2
+    slice) no pixel may be off by more than 1e-3 relative and nrays must
+    be equal; otherwise compare_paths' aggregate gate holds."""
+    from unittest import mock
+
+    from bpt_tpu_torch.accel import api
+    from bpt_tpu_torch.core import rng
+    from bpt_tpu_torch.integrators.bdpt import BDPTConfig, render_chunk
+
+    t0 = time.perf_counter()
+    cfg = BDPTConfig(BENCH["width"], BENCH["height"], spp=BENCH["spp"],
+                     rr_depth=BENCH["rr_depth"])
+    cam_consts = cam.device_constants(device)
+    key = rng.key(SEED, device)
+
+    def chunk():
+        fb, nr = render_chunk(scene, cam_consts, cfg, key, cfg.spp,
+                              samples_per_batch=BENCH["sb"])
+        torch.cuda.synchronize()
+        return fb, int(nr)
+
+    with mock.patch.multiple(api, **routes):
+        tw = time.perf_counter()
+        chunk()
+        warm_s = time.perf_counter() - tw
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        tw = time.perf_counter()
+        fb, nrays = chunk()
+        wall = time.perf_counter() - tw
+        launches, plain_calls = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        walls = [wall]
+        for _ in range(2):
+            tw = time.perf_counter()
+            chunk()
+            walls.append(time.perf_counter() - tw)
+        wall_med = statistics.median(walls)
+        prof = _profile_batch(scene, cam_consts, cfg, key,
+                              wall_med / (cfg.spp // BENCH["sb"]))
+    base_fb, base_out = base
+    a, b = fb.double(), base_fb.double()
+    frac_off = float(((a - b).abs() / torch.clamp_min(b.abs(), 1e-3)
+                      > 1e-3).double().mean())
+    mean_rel = abs(float(a.mean()) - float(b.mean())) / max(float(b.mean()),
+                                                           1e-9)
+    nr_rel = abs(nrays - base_out["nrays"]) / max(base_out["nrays"], 1)
+    out = {"phase": phase, "config": base_out["config"],
+           "routes": {k: v.__name__ for k, v in routes.items()},
+           "nvidia_smi": smi, "warmup_s": warm_s, "wall_s": wall_med,
+           "wall_s_runs": walls, "nrays": nrays,
+           "rays_per_s": nrays / wall_med, "peak_mem_bytes": peak,
+           "launches": launches, "plain_calls_on_cuda": plain_calls,
+           "image_mean": float(fb.mean()),
+           "finite": bool(torch.isfinite(fb).all()),
+           "vs_k1_k2_slice": {"pixels_off_frac": frac_off,
+                              "mean_rel": mean_rel, "nrays_rel": nr_rel,
+                              "wall_s": base_out["wall_s"],
+                              "rays_per_s": base_out["rays_per_s"],
+                              "peak_mem_bytes": base_out["peak_mem_bytes"]},
+           **prof}
+    emit(out, t0)
+    check_render(out, used=tuple(counts))
+    if any(launches[k] != base_out["launches"][b] for k, b in counts.items()):
+        raise AssertionError(f"{phase} launched {launches}, the K1/K2 "
+                             f"slice {base_out['launches']}")
+    v = out["vs_k1_k2_slice"]
+    if not (frac_off == 0.0 and nr_rel == 0.0 if exact
+            else frac_off <= 0.02 and mean_rel <= 1e-3 and nr_rel <= 1e-3):
+        raise AssertionError(f"{phase} disagrees with the K1/K2 slice: {v}")
     return launches
 
 
@@ -617,19 +809,20 @@ def phase_slice_large(scene, cfg_t, device, smi):
     out.update(_profile_batch(scene, cam_consts, cfg, key,
                               wall / (cfg.spp // BENCH["sb"])))
     emit(out, t0)
-    check_render(out, used=("k3_closest_hit_stream", "k4_any_hit_stream"),
-                 unused=("k1_closest_hit", "k2_any_hit"))
+    check_render(out, used=("k3_closest_hit_stream", "k4_any_hit_stream"))
     return launches
 
 
-def check_render(out, used, unused):
+def check_render(out, used):
+    """Finite, not black, every kernel of `used` launched, no other
+    kernel and no plain version on CUDA tensors."""
     launches = out["launches"]
     if not out["finite"]:
         raise AssertionError(f"non-finite pixels in {out['phase']}")
     if min(launches[k] for k in used) <= 0:
         raise AssertionError(f"a kernel of the path was not launched: "
                              f"{launches}")
-    if any(launches[k] for k in unused):
+    if any(n for k, n in launches.items() if k not in used):
         raise AssertionError(f"a kernel of another path was launched: "
                              f"{launches}")
     if out["plain_calls_on_cuda"]:
@@ -699,6 +892,8 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import bpt_tpu_torch  # noqa: F401  (sets the TF32 switches)
+    from bpt_tpu_torch.ops import trace_any as ta
+    from bpt_tpu_torch.ops import trace_closest as tc
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
@@ -716,11 +911,40 @@ def main():
     large_segs = k2_inputs(large, device, n_connect)
     k3 = phase_k3(large, large_rays, scene, bench_rays)
     k4 = phase_k4(large, large_segs, scene, bench_segs)
+    del large_rays, large_segs
+    scene6 = phase_subdiv6(device)
+    rays6 = compacted_k1_inputs(scene6, cam, device)[0]
+    closest_tables = (("bench", scene.treelets, bench_rays[0]),
+                      ("subdiv6", scene6.treelets, rays6))
+    k5 = phase_closest_kernel("k5_closest_hit_full", tc.closest_hit_full,
+                              tc.closest_hit_full_plain, closest_tables,
+                              exact_vs_k1=True)
+    k6 = phase_closest_kernel("k6_closest_hit_sweep", tc.closest_hit_sweep,
+                              tc.closest_hit_sweep_plain, closest_tables,
+                              exact_vs_k1=False)
+    del rays6, closest_tables
+    segs6 = k2_inputs(scene6, device, n_connect)[1]
+    k7 = phase_k7((("bench", scene.treelets_any, bench_segs[1]),
+                   ("subdiv6", scene6.treelets_any, segs6)))
     # The renders' peak memory counts the scenes and the render only.
-    del large_rays, large_segs, bench_rays, bench_segs
+    del bench_rays, bench_segs, segs6, scene6
     torch.cuda.empty_cache()
 
-    launches = phase_slice(scene, cam, device, smi)
+    launches, fb, base = phase_slice(scene, cam, device, smi)
+    routed = phase_slice_routed(
+        "slice_k5_k7", scene, cam, device, smi,
+        dict(closest_hit=tc.closest_hit_full, any_hit=ta.any_hit_compact),
+        {"k5_closest_hit_full": "k1_closest_hit",
+         "k7_any_hit_compact": "k2_any_hit"}, (fb, base), exact=True)
+    launches.update({k: routed[k] for k in ("k5_closest_hit_full",
+                                            "k7_any_hit_compact")})
+    routed = phase_slice_routed(
+        "slice_k6", scene, cam, device, smi,
+        dict(closest_hit=tc.closest_hit_sweep),
+        {"k6_closest_hit_sweep": "k1_closest_hit", "k2_any_hit": "k2_any_hit"},
+        (fb, base), exact=False)
+    launches["k6_closest_hit_sweep"] = routed["k6_closest_hit_sweep"]
+    del fb
     launches.update({k: v for k, v in phase_slice_large(
         large, cfg_t, device, smi).items() if k.startswith(("k3", "k4"))})
     phase_paths(device, large, cfg_t.camera)
@@ -737,6 +961,12 @@ def main():
          "bpt_tpu/ops/pallas_sweep.py:289", "k3_closest_hit_stream", k3),
         ("any_hit_stream", "any_hit_stream.cu",
          "bpt_tpu/ops/pallas_sweep.py:235", "k4_any_hit_stream", k4),
+        ("closest_hit_full", "closest_hit_full.cu",
+         "bpt_tpu/ops/pallas_trace.py:71", "k5_closest_hit_full", k5),
+        ("closest_hit_sweep", "closest_hit_sweep.cu",
+         "bpt_tpu/ops/pallas_sweep.py:263", "k6_closest_hit_sweep", k6),
+        ("any_hit_compact", "any_hit_compact.cu",
+         "bpt_tpu/ops/pallas_trace.py:559", "k7_any_hit_compact", k7),
     ]
     rows = []
     for name, src, replaces, count, res in kernels:

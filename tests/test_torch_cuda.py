@@ -1,7 +1,7 @@
-"""The CUDA kernels K1-K4 against their plain PyTorch versions on the
-card: bit-equal hits and equal occlusion flags; the streamed kernels K3
-and K4 also against K1 and K2.  These need an NVIDIA GPU with nvcc and
-skip without one; run them on the card with
+"""The CUDA kernels K1-K7 against their plain PyTorch versions on the
+card: bit-equal hits and equal occlusion flags; K3-K7 also against K1
+and K2.  These need an NVIDIA GPU with nvcc and skip without one; run
+them on the card with
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 """
@@ -161,18 +161,94 @@ def test_stream_kernels_match_k1_k2_on_the_bench_scene(cuda_scene):
 
 
 def test_unstreamed_kernels_refuse_large_tables(cuda_subdiv5):
-    """K1/K2 take at most MAX_TREELETS treelets on the card; a larger
-    table raises instead of reaching a plain version."""
+    """K1/K2 and K5-K7 take at most MAX_TREELETS treelets on the card; a
+    larger table raises instead of reaching a plain version."""
     from bpt_tpu_torch.ops.intersect import MAX_TREELETS
     from bpt_tpu_torch.ops.trace_any import any_hit
     from bpt_tpu_torch.ops.trace_closest import closest_hit
+
+    from bpt_tpu_torch.ops.trace_any import any_hit_compact
+    from bpt_tpu_torch.ops.trace_closest import closest_hit_full, \
+        closest_hit_sweep
 
     tg = cuda_subdiv5.treelets
     reps = MAX_TREELETS // tg.block.shape[0] + 1
     big = type(tg)(*(x.repeat((reps,) + (1,) * (x.ndim - 1)).contiguous()
                      for x in tg))
     args = _rays(64, seed=5)
-    with pytest.raises(ValueError):
-        closest_hit(big, *args)
-    with pytest.raises(ValueError):
-        any_hit(big, *args)
+    for fn in (closest_hit, any_hit, closest_hit_full, closest_hit_sweep,
+               any_hit_compact):
+        launches = fn.launches
+        with pytest.raises(ValueError):
+            fn(big, *args)
+        assert fn.launches == launches
+
+
+TABLES = ["cuda_scene", "cuda_subdiv5"]
+
+
+def _bit_equal_closest(got, ref):
+    assert torch.equal(got[1], ref[1])
+    for g, r in zip((got[0], got[2], got[3]), (ref[0], ref[2], ref[3])):
+        assert torch.equal(g.view(torch.int32), r.view(torch.int32))
+
+
+@pytest.mark.parametrize("table", TABLES)
+@pytest.mark.parametrize("n", [1, 1000, 65_536])
+def test_full_kernel_bit_equal_to_plain_and_k1(request, table, n):
+    """K5 (19 treelets: one candidate fill; 235: refills) against its
+    plain version and K1, bit for bit."""
+    from bpt_tpu_torch.ops.trace_closest import closest_hit, \
+        closest_hit_full, closest_hit_full_plain
+
+    tg = request.getfixturevalue(table).treelets
+    args = _rays(n, seed=n + 7)
+    launches = closest_hit_full.launches
+    got = closest_hit_full(tg, *args)
+    ref = closest_hit_full_plain(tg, *args)
+    k1 = closest_hit(tg, *args)
+    torch.cuda.synchronize()
+    assert closest_hit_full.launches == launches + 1
+    _bit_equal_closest(got, ref)
+    _bit_equal_closest(got, k1)
+
+
+@pytest.mark.parametrize("table", TABLES)
+@pytest.mark.parametrize("n", [1, 1000, 65_536])
+def test_sweep_kernel_bit_equal_to_plain(request, table, n):
+    """K6 against its plain version bit for bit; its t is K1's on every
+    lane, and tri/u/v differ from K1's only on exact-t ties."""
+    from bpt_tpu_torch.ops.trace_closest import closest_hit, \
+        closest_hit_sweep, closest_hit_sweep_plain
+
+    tg = request.getfixturevalue(table).treelets
+    args = _rays(n, seed=n + 8)
+    launches = closest_hit_sweep.launches
+    got = closest_hit_sweep(tg, *args)
+    ref = closest_hit_sweep_plain(tg, *args)
+    k1 = closest_hit(tg, *args)
+    torch.cuda.synchronize()
+    assert closest_hit_sweep.launches == launches + 1
+    _bit_equal_closest(got, ref)
+    assert torch.equal(got[0].view(torch.int32), k1[0].view(torch.int32))
+    assert float((got[1] != k1[1]).double().mean()) <= 0.02
+
+
+@pytest.mark.parametrize("table", TABLES)
+@pytest.mark.parametrize("n", [1, 1000, 65_536])
+def test_compact_any_kernel_equal_to_plain_and_k2(request, table, n):
+    """K7 (235 treelets: unions of more than one round) against its plain
+    version and K2, flag for flag."""
+    from bpt_tpu_torch.ops.trace_any import any_hit, any_hit_compact, \
+        any_hit_compact_plain
+
+    tg = request.getfixturevalue(table).treelets_any
+    args = _rays(n, seed=n + 9, segment=True)
+    launches = any_hit_compact.launches
+    got = any_hit_compact(tg, *args)
+    ref = any_hit_compact_plain(tg, *args)
+    k2 = any_hit(tg, *args)
+    torch.cuda.synchronize()
+    assert any_hit_compact.launches == launches + 1
+    assert torch.equal(got, ref)
+    assert torch.equal(got, k2)
