@@ -10,7 +10,7 @@ treelet count of their table:
     (ops/trace_closest.py::closest_hit), any hit through K2
     (ops/trace_any.py::any_hit);
   * NT > MAX_TREELETS: the streamed kernels, closest hit through K3
-    (closest_hit_stream), any hit through K4 (any_hit_stream), in chunks
+    (closest_hit_stream), any hit through K4 (any_hit_stream), in groups
     of STREAM_CHUNK treelets.
 
 The threshold is the port's own: K1 and K2 keep every box of the table

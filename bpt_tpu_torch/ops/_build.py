@@ -50,13 +50,14 @@ _SIGNATURES = {
     "bpt_closest_hit_sweep": _CLOSEST,
     "bpt_any_hit": _ANY,
     "bpt_any_hit_compact": _ANY,
-    # bmin, bmax, block, tri_index, nt, k, chunk, o, d, min_t, max_t, b,
-    # t, tri, u, v, stream
-    "bpt_closest_hit_stream": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
-                               _I, _P, _P, _P, _P, _P),
-    # bmin, bmax, block, nt, k, chunk, o, d, min_t, max_t, b, occ, stream
-    "bpt_any_hit_stream": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P,
-                           _P),
+    # bmin, bmax, gmin, gmax, rows, counts, tri_index, nt, ng, g, k, o, d,
+    # min_t, max_t, b, t, tri, u, v, counter, stream
+    "bpt_closest_hit_stream": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P),
+    # bmin, bmax, gmin, gmax, rows, counts, nt, ng, g, k, o, d, min_t,
+    # max_t, b, occ, counter, stream
+    "bpt_any_hit_stream": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+                           _P, _P, _I, _P, _P, _P),
 }
 
 
@@ -72,6 +73,9 @@ class KernelLibrary:
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
             setattr(self, name, fn)
+        self.error_string = self._dll.bpt_cuda_error_string
+        self.error_string.argtypes = [ctypes.c_int]
+        self.error_string.restype = ctypes.c_char_p
 
 
 _library = None
@@ -151,8 +155,11 @@ def library() -> KernelLibrary:
 
 def launch(name: str, device, *args) -> None:
     """Launch kernel entry point `name` of the library on `device`'s
-    current stream; raise if CUDA refused the launch."""
+    current stream; raise if CUDA refused the launch (too many threads,
+    or more shared memory than the card grants a block)."""
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = getattr(library(), name)(*args, stream)
+    lib = library()
+    err = getattr(lib, name)(*args, stream)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        msg = lib.error_string(err).decode(errors="replace")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")

@@ -13,12 +13,11 @@ from ..core.math import EPSILON, T_MIN_HIT
 
 # Boxes live in 48 KB of static-limit shared memory: 6 floats a treelet.
 # K1/K2 hold the whole table there, so they take at most MAX_TREELETS
-# treelets; K3/K4 hold one chunk of at most MAX_TREELETS.
+# treelets.  K3/K4 take any table, in groups of at most MAX_TREELETS.
 MAX_TREELETS = 48 * 1024 // (6 * 4)
-# Treelets per chunk of K3/K4 on the main path (accel/api.py).  Timed on
-# an H100 (700 W) on the 3,656-treelet glass box over chunks of 64-2048:
-# K3 is fastest here on the walk batch, K4 within 5% of its best (PERF.md).
-STREAM_CHUNK = 256
+# Treelets per group of K3/K4 on the main path (accel/api.py); a group's
+# union box is tested before its members' boxes.
+STREAM_CHUNK = 32
 # Elements of a plain version's (lanes, treelets) slab matrix per step.
 SLAB_ELEMS = 1 << 26
 
@@ -83,8 +82,8 @@ def moller_trumbore(blk, o, d):
 
 def check_trace_args(tg, o, d, min_t, max_t, chunk_nt=None):
     """Device, dtype, shape and contiguity checks of a trace call.
-    `chunk_nt` is the chunk of a streamed kernel (K3/K4), None for
-    K1/K2."""
+    `chunk_nt` is the group size of a streamed kernel (K3/K4), None for
+    the others."""
     b = o.shape[0] if o.ndim == 2 else -1
     if o.shape != (b, 3) or d.shape != (b, 3):
         raise ValueError(f"rays must be (B, 3), got {o.shape} and {d.shape}")

@@ -4,8 +4,9 @@ K2 (`any_hit`, kernel bpt_tpu_torch/csrc/any_hit.cu) replaces the TPU
 kernel bpt_tpu/ops/pallas_sweep.py::trace_any_sweep and takes tables of
 at most MAX_TREELETS treelets.  K4 (`any_hit_stream`, kernel
 bpt_tpu_torch/csrc/any_hit_stream.cu) replaces
-bpt_tpu/ops/pallas_sweep.py::trace_any_stream: the same flags with the
-table taken in chunks of `chunk_nt` treelets, for tables of any size.
+bpt_tpu/ops/pallas_sweep.py::trace_any_stream: the same flags on tables
+of any size, with the table taken in groups of `chunk_nt` consecutive
+treelets behind their union boxes (accel/treelets.py::group_boxes).
 K7 (`any_hit_compact`, csrc/any_hit_compact.cu) replaces
 bpt_tpu/ops/pallas_trace.py::trace_any_compact: the same flags, with
 each tile of lanes walking only the compacted union of the treelets its
@@ -24,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from ..accel.treelets import group_boxes, triangle_counts, triangle_rows
 from .intersect import SLAB_ELEMS, check_trace_args, moller_trumbore, slab
 
 # (segment, treelet) pairs per triangle-test step of the plain versions.
@@ -115,18 +117,23 @@ any_hit.launches = 0
 
 
 def any_hit_stream(tg, o, d, min_t, max_t, chunk_nt):
-    """K4: occlusion flags (B,) bool against a table of any size, streamed
-    in chunks of `chunk_nt` (1..MAX_TREELETS) treelets."""
+    """K4: occlusion flags (B,) bool against a table of any size, taken in
+    groups of `chunk_nt` (1..MAX_TREELETS) treelets.  Raises if the card
+    cannot hold the group boxes in one block's shared memory."""
     b, nt, k = check_trace_args(tg, o, d, min_t, max_t, chunk_nt)
     if o.device.type == "cpu":
         return any_hit_stream_plain(tg, o, d, min_t, max_t, chunk_nt)
     occ = torch.empty((b,), dtype=torch.bool, device=o.device)
     if b == 0:
         return occ
+    gmin, gmax = group_boxes(tg, chunk_nt)
+    counter = torch.zeros((1,), dtype=torch.int32, device=o.device)
     _build.launch("bpt_any_hit_stream", o.device, tg.bmin.data_ptr(),
-                  tg.bmax.data_ptr(), tg.block.data_ptr(), nt, k, chunk_nt,
-                  o.data_ptr(), d.data_ptr(), min_t.data_ptr(),
-                  max_t.data_ptr(), b, occ.data_ptr())
+                  tg.bmax.data_ptr(), gmin.data_ptr(), gmax.data_ptr(),
+                  triangle_rows(tg).data_ptr(),
+                  triangle_counts(tg).data_ptr(), nt, gmin.shape[0],
+                  chunk_nt, k, o.data_ptr(), d.data_ptr(), min_t.data_ptr(),
+                  max_t.data_ptr(), b, occ.data_ptr(), counter.data_ptr())
     any_hit_stream.launches += 1
     return occ
 

@@ -4,33 +4,37 @@ K1 (`closest_hit`, kernel bpt_tpu_torch/csrc/closest_hit.cu) replaces the
 TPU kernel bpt_tpu/ops/pallas_trace.py::trace_closest_compact and takes
 tables of at most MAX_TREELETS treelets.  K3 (`closest_hit_stream`,
 kernel bpt_tpu_torch/csrc/closest_hit_stream.cu) replaces
-bpt_tpu/ops/pallas_sweep.py::trace_closest_stream: the same closest hit
-with the table taken in chunks of `chunk_nt` treelets, the best hit
-carried from chunk to chunk, for tables of any size.  K5
-(`closest_hit_full`, csrc/closest_hit_full.cu) replaces
-pallas_trace.py::trace_closest_pallas: K1's function, with each ray's
-entries computed once into a candidate list.  K6 (`closest_hit_sweep`,
-csrc/closest_hit_sweep.cu) replaces pallas_sweep.py::trace_closest_sweep:
-one visit order shared by a tile of SWEEP_TILE lanes.
+bpt_tpu/ops/pallas_sweep.py::trace_closest_stream: K1's closest hit, bit
+for bit, on tables of any size, with the table taken in groups of
+`chunk_nt` consecutive treelets behind their union boxes
+(accel/treelets.py::group_boxes).  K5 (`closest_hit_full`,
+csrc/closest_hit_full.cu) replaces pallas_trace.py::trace_closest_pallas:
+K1's function, with each ray's entries computed once into a candidate
+list.  K6 (`closest_hit_sweep`, csrc/closest_hit_sweep.cu) replaces
+pallas_sweep.py::trace_closest_sweep: one visit order shared by a tile of
+SWEEP_TILE lanes.
 
 Each wrapper runs its plain PyTorch version for tensors on the CPU and
 launches its kernel for CUDA tensors, or raises.  `<wrapper>.launches`
 counts kernel launches; `<plain>.cuda_calls` counts calls of a plain
 version with CUDA tensors (a comparison harness, never a route).
 
-One tie rule: chunks in index order (K1 and K5 are the one-chunk case);
-within a chunk treelets in (entry, index) order while entry < t_best,
+One tie rule for K1, K3 and K5: a lane visits the treelets it overlaps
+in (entry, index) order over the whole table while entry < t_best,
 strict `<` to improve, lowest slot k on an equal t.  K6 differs only in
 the order: a tile visits treelets by (tile-minimum entry, index), so
 where two triangles of different treelets give exactly the same t, K6
-keeps the one its tile reached first.  A miss or dead lane gives
-(inf, -1, 0, 0).
+keeps the one its tile reached first.  The reference's streamed kernel
+shares K6's tile order (pallas_sweep.py::_closest_body), so K3 and the
+reference's trace_closest_stream differ only on such ties.  A miss or
+dead lane gives (inf, -1, 0, 0).
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
+from ..accel.treelets import group_boxes, triangle_counts, triangle_rows
 from .intersect import SLAB_ELEMS, check_trace_args, moller_trumbore, slab
 
 # Lanes per tile of K6: one CUDA block (csrc/intersect.cuh kThreads) and
@@ -41,29 +45,26 @@ SWEEP_TILE = 128
 _PLAIN_CHUNK = 1 << 16
 
 
-def _closest_chunks(tg, o, d, min_t, max_t, chunk_nt):
-    """The plain closest hit, chunk by chunk; temporaries are at most
-    (SLAB_ELEMS / chunk_nt lanes, chunk_nt)."""
+def _closest_walk(tg, o, d, min_t, max_t):
+    """The plain closest hit: each live lane visits the treelets it
+    overlaps in (entry, index) order while entry < t_best.  Temporaries
+    are at most (SLAB_ELEMS / NT lanes, NT)."""
     nt = tg.block.shape[0]
     best = _miss(o.shape[0], o.device)
     live = torch.nonzero(max_t >= min_t).squeeze(1)
-    lanes = max(1, SLAB_ELEMS // chunk_nt)
-    for c0 in range(0, nt, chunk_nt):
-        c1 = min(c0 + chunk_nt, nt)
-        for s0 in range(0, live.numel(), lanes):
-            ln = live[s0:s0 + lanes]
-            _, entry = slab(tg.bmin[c0:c1], tg.bmax[c0:c1], o[ln], d[ln],
-                            min_t[ln], max_t[ln])
-            entry_s, order = torch.sort(entry, dim=1, stable=True)
-            del entry
-            for r in range(c1 - c0):
-                # Entries are sorted and t_best only shrinks, so once no
-                # lane is active at rank r none is at a later rank.
-                act = torch.nonzero(entry_s[:, r] < best[0][ln]).squeeze(1)
-                if act.numel() == 0:
-                    break
-                _visit(tg, o, d, min_t, max_t, ln[act], order[act, r] + c0,
-                       best)
+    lanes = max(1, SLAB_ELEMS // max(nt, 1))
+    for s0 in range(0, live.numel(), lanes):
+        ln = live[s0:s0 + lanes]
+        _, entry = slab(tg.bmin, tg.bmax, o[ln], d[ln], min_t[ln], max_t[ln])
+        entry_s, order = torch.sort(entry, dim=1, stable=True)
+        del entry
+        for r in range(nt):
+            # Entries are sorted and t_best only shrinks, so once no lane
+            # is active at rank r none is at a later rank.
+            act = torch.nonzero(entry_s[:, r] < best[0][ln]).squeeze(1)
+            if act.numel() == 0:
+                break
+            _visit(tg, o, d, min_t, max_t, ln[act], order[act, r], best)
     return best
 
 
@@ -102,32 +103,31 @@ def _visit(tg, o, d, min_t, max_t, lanes, rows, best):
 
 
 def closest_hit_plain(tg, o, d, min_t, max_t):
-    """Plain PyTorch version of K1: the whole table as one chunk."""
+    """Plain PyTorch version of K1."""
     if o.is_cuda:
         closest_hit_plain.cuda_calls += 1
-    return _closest_chunks(tg, o, d, min_t, max_t, max(tg.block.shape[0], 1))
+    return _closest_walk(tg, o, d, min_t, max_t)
 
 
 closest_hit_plain.cuda_calls = 0
 
 
 def closest_hit_stream_plain(tg, o, d, min_t, max_t, chunk_nt):
-    """Plain PyTorch version of K3: chunks of `chunk_nt` treelets in index
-    order, the best hit carried across them."""
+    """Plain PyTorch version of K3: K1's function, which the group size
+    `chunk_nt` does not change."""
     if o.is_cuda:
         closest_hit_stream_plain.cuda_calls += 1
-    return _closest_chunks(tg, o, d, min_t, max_t, chunk_nt)
+    return _closest_walk(tg, o, d, min_t, max_t)
 
 
 closest_hit_stream_plain.cuda_calls = 0
 
 
 def closest_hit_full_plain(tg, o, d, min_t, max_t):
-    """Plain PyTorch version of K5: K1's function, the whole table as one
-    chunk."""
+    """Plain PyTorch version of K5: K1's function."""
     if o.is_cuda:
         closest_hit_full_plain.cuda_calls += 1
-    return _closest_chunks(tg, o, d, min_t, max_t, max(tg.block.shape[0], 1))
+    return _closest_walk(tg, o, d, min_t, max_t)
 
 
 closest_hit_full_plain.cuda_calls = 0
@@ -224,20 +224,25 @@ closest_hit.launches = 0
 
 
 def closest_hit_stream(tg, o, d, min_t, max_t, chunk_nt):
-    """K3: closest hit of rays (B, 3) with (B,) windows against a table of
-    any size, streamed in chunks of `chunk_nt` (1..MAX_TREELETS)
-    treelets.  Returns (t, tri, u, v), each (B,)."""
+    """K3: K1's closest hit of rays (B, 3) with (B,) windows against a
+    table of any size, taken in groups of `chunk_nt` (1..MAX_TREELETS)
+    treelets.  Returns (t, tri, u, v), each (B,).  Raises if the card
+    cannot hold the group boxes in one block's shared memory."""
     b, nt, k = check_trace_args(tg, o, d, min_t, max_t, chunk_nt)
     if o.device.type == "cpu":
         return closest_hit_stream_plain(tg, o, d, min_t, max_t, chunk_nt)
     out = _outputs(b, o.device)
     if b == 0:
         return out
+    gmin, gmax = group_boxes(tg, chunk_nt)
+    counter = torch.zeros((1,), dtype=torch.int32, device=o.device)
     _build.launch("bpt_closest_hit_stream", o.device, tg.bmin.data_ptr(),
-                  tg.bmax.data_ptr(), tg.block.data_ptr(),
-                  tg.tri_index.data_ptr(), nt, k, chunk_nt, o.data_ptr(),
-                  d.data_ptr(), min_t.data_ptr(), max_t.data_ptr(), b,
-                  *(x.data_ptr() for x in out))
+                  tg.bmax.data_ptr(), gmin.data_ptr(), gmax.data_ptr(),
+                  triangle_rows(tg).data_ptr(),
+                  triangle_counts(tg).data_ptr(), tg.tri_index.data_ptr(), nt,
+                  gmin.shape[0], chunk_nt, k, o.data_ptr(), d.data_ptr(),
+                  min_t.data_ptr(), max_t.data_ptr(), b,
+                  *(x.data_ptr() for x in out), counter.data_ptr())
     closest_hit_stream.launches += 1
     return out
 

@@ -4,15 +4,15 @@ A Cornell-box generator with the reference scenes' layout conventions
 (camera at +z looking down -z, ceiling area light) and optional mirror /
 glass content.  The ObjData builder is the reference package's, copied
 because that module imports the JAX camera and scene assembler; only
-`cornell_box_scene` differs, building the scene on a given device.
+`cornell_box_scene` differs, building the scene on a given device (the
+card unless the caller asks for the CPU).
 """
 from __future__ import annotations
 
 import numpy as np
 
-from bpt_tpu.scene.obj import Material, ObjData, Shape
-
 from ..core.camera import Camera
+from .obj import Material, ObjData, Shape
 from .scene import build_scene
 
 
@@ -245,7 +245,7 @@ def cornell_box(
     return obj
 
 
-def cornell_box_scene(width=64, height=64, device="cpu", **kwargs):
+def cornell_box_scene(width=64, height=64, device="cuda", **kwargs):
     """(SceneData, SceneMeta, Camera) for tests and benchmarks."""
     obj = cornell_box(**kwargs)
     scene, meta = build_scene(obj, device)

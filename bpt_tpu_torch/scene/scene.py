@@ -1,20 +1,19 @@
 """Scene assembly: OBJ/MTL data -> flat device tensors + BVH + treelets
 (port of bpt_tpu/scene/scene.py).
 
-The host side is the reference package's numpy pipeline, step for step:
-triangles flattened across shapes, a midpoint BVH (bpt_tpu.accel.build
-with use_native=False, the numpy builder that tests/test_native.py holds
-equal to the native one), K = 128 treelets (bpt_tpu.accel.treelets),
-per-emitter face CDFs.  Those host modules and bpt_tpu.scene.obj import
-numpy only, never jax.  Only the final conversion differs: the
-leaves become torch tensors on a given device, with JAX's dtype
-canonicalisation (int64 -> int32, float64 -> float32), so that every
-leaf equals the reference package's exactly.
+The host side is the reference package's numpy pipeline, step for step,
+on the port's copies of its host modules: triangles flattened across
+shapes, a midpoint BVH (accel/build.py, the reference's numpy builder),
+K = 128 treelets (accel/treelets.py::build_treelets), per-emitter face
+CDFs.  Only the final conversion differs: the leaves become torch
+tensors on a given device, with JAX's dtype canonicalisation (int64 ->
+int32, float64 -> float32), so that every leaf equals the reference
+package's exactly.
 
 `scene_from_arrays` builds the same SceneData from numpy leaves keyed by
 field path ("geom.v0", "treelets.block", ...), which is how a test hands
 the reference package's arrays to the port.  `load_scene` reads an OBJ
-file with the reference's jax-free parser (bpt_tpu.scene.obj.load_obj).
+file with scene/obj.py::load_obj, a copy of the reference's parser.
 """
 from __future__ import annotations
 
@@ -25,12 +24,11 @@ from typing import Dict, Iterator, List, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from bpt_tpu.accel.build import LEAF_SIZE, build_bvh
-from bpt_tpu.accel.treelets import build_treelets
-from bpt_tpu.scene.obj import ObjData, load_obj
-
-from ..accel.treelets import TraceGeom, TreeletGeom, make_treelet_geom
+from ..accel.build import LEAF_SIZE, build_bvh
+from ..accel.treelets import (TraceGeom, TreeletGeom, build_treelets,
+                              make_treelet_geom)
 from ..bsdf.bsdf import DIFFUSE, GLASS, MIRROR, MIXTURE, PHONG, MaterialTable
+from .obj import ObjData, load_obj
 from .textures import build_atlas, load_texture
 
 TREELET_K = 128
@@ -193,7 +191,7 @@ def build_scene(obj: ObjData, device, tex_dir: str = ""
         n0 = n1 = n2 = gn
 
     # --- BVH (midpoint splits, the numpy builder) --------------------------
-    bvh = build_bvh(v0, v1, v2, use_native=False)
+    bvh = build_bvh(v0, v1, v2)
     perm = bvh.prim_order  # new -> old
     inv_perm = np.empty_like(perm)
     inv_perm[perm] = np.arange(t, dtype=np.int32)

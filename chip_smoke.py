@@ -4,12 +4,16 @@
 
 Builds the port's seven CUDA kernels from bpt_tpu_torch/csrc/ and checks
 each one against its plain PyTorch version at the main paths' shapes:
-K1-K4 as the routes of `accel/api.py` use them, and K5 (full-table
-closest hit), K6 (tile-sweep closest hit) and K7 (compact-table any hit)
-on the bench scene (19 treelets) and on the glass box with a subdiv-6
-sphere (923 treelets), where K5 also holds to K1, K6's t to K1's and K7
-to K2.  Four paths are driven through `render_chunk` (256x256, rr_depth
-8, 2 samples per batch, seed 7, 16 spp):
+K1-K4 as the routes of `accel/api.py` use them (K3 and K4 also against
+K1's and K2's plain versions, whose functions they compute), and K5
+(full-table closest hit), K6 (tile-sweep closest hit) and K7
+(compact-table any hit) on the bench scene (19 treelets) and on the
+glass box with a subdiv-6 sphere (923 treelets), where K5 also holds to
+K1, K6's t to K1's and K7 to K2.  Every timed kernel call is printed
+beside its bound (`trace_bound`: the FP32 operations and bytes that its
+inputs need, over the card's peak rates) and its share of that bound.
+Four paths are driven through `render_chunk` (256x256, rr_depth 8, 2
+samples per batch, seed 7, 16 spp):
 
   * the bench configuration: the procedural glass Cornell box (19
     treelets), traced by K1 (closest hit) and K2 (any hit);
@@ -34,6 +38,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -50,12 +55,28 @@ SMALL_LARGE = dict(width=32, height=32, spp=2, rr_depth=4)
 # The second table of K5-K7: more treelets than a candidate buffer (K5)
 # or a compaction round (K7) holds.
 SUBDIV6 = dict(sphere_subdiv=6, n_treelets=923)
-# The bench scene's 19 treelets in chunks of 8: three chunks, the last
+# The bench scene's 19 treelets in groups of 8: three groups, the last
 # one ragged.
 BENCH_CHUNK = 8
 DEAD_FRAC_K1 = 0.10
 LIVE_FRAC_K2 = 0.30
 REPS = 5
+# The large scene's rays per chunk in the K3/K4 render before their
+# redesign (the script's run on an H100 at commit be61a0e); the
+# redesigned K3 visits treelets in another order, which may change the
+# triangle of an exact-t tie and so a path, never t.
+LARGE_NRAYS_BEFORE = 18_017_167
+# The bound of a trace call (trace_bound): FP32 operations of one slab
+# test and of one Moeller-Trumbore test as csrc/intersect.cuh writes
+# them, each add, subtract, multiply, divide, min, max and compare
+# counting one (the window compares of each kind included), over the
+# peak rates of one H100 SXM at 700 W (NVIDIA's data sheet).  The
+# kernels build with -fmad=false, so no FMA pairs a multiply with an
+# add, and about half of the FP32 peak is the most they can reach.
+OPS_SLAB = 28
+OPS_MT = {"closest": 56, "any": 54}
+PEAK_FP32_OPS = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def emit(obj, t0=None):
@@ -210,13 +231,131 @@ def closest_report(got, ref):
             "max_abs_err": err}
 
 
+def treelet_counts(tg, o, d, mn, mx, lanes, limit=None):
+    """For each lane of the index tensor `lanes`: the number of treelets
+    whose box its ray overlaps (with entry < limit[lane] when `limit` is
+    given) and the triangles they hold; and which treelets any of these
+    lanes overlaps.  Plain PyTorch, at most SLAB_ELEMS (lane, treelet)
+    pairs a step."""
+    from bpt_tpu_torch.ops.intersect import SLAB_ELEMS, slab
+
+    nt = tg.bmin.shape[0]
+    sizes = treelet_sizes(tg)
+    count = torch.zeros(lanes.shape, dtype=torch.int64, device=o.device)
+    tris = torch.zeros(lanes.shape, dtype=torch.int64, device=o.device)
+    used = torch.zeros((nt,), dtype=torch.bool, device=o.device)
+    step = max(1, SLAB_ELEMS // nt)
+    for s in range(0, lanes.numel(), step):
+        ln = lanes[s:s + step]
+        mask, entry = slab(tg.bmin, tg.bmax, o[ln], d[ln], mn[ln], mx[ln])
+        if limit is not None:
+            mask &= entry < limit[ln, None]
+        count[s:s + step] = mask.sum(1)
+        tris[s:s + step] = torch.where(mask, sizes, 0).sum(1)
+        used |= mask.any(0)
+        del mask, entry
+    return count, tris, used
+
+
+def treelet_sizes(tg):
+    """(NT,) int64: the triangles of each treelet, its slots that are not
+    all-zero pads."""
+    return (tg.block != 0).any(dim=1).sum(dim=1)
+
+
+def trace_bound(tg, args, kind, result):
+    """The least time the card could take for one closest-hit (`kind`
+    "closest", `result` (t, tri, u, v)) or any-hit ("any", `result` the
+    flags) call on `args`: max(FP32 operations / PEAK_FP32_OPS, bytes /
+    PEAK_BYTES), with the work these inputs need at treelet granularity.
+    Closest hit: a live lane needs every treelet it overlaps with entry
+    below its final t.  Any hit: an occluded lane one treelet (of the
+    table's mean size), an open lane every treelet it overlaps.  A needed
+    treelet costs one slab test and one triangle test for each of its
+    triangles (pad slots, which hold none, cost nothing).  Bytes: each
+    lane's ray (32 B) read and its result written once, and the box and
+    triangles of every treelet that a closest-hit or open lane needs read
+    once (an occluded lane's one treelet is left out: which one it is
+    depends on the order)."""
+    o, d, mn, mx = args
+    b = o.shape[0]
+    live = mx >= mn
+    sizes = treelet_sizes(tg)
+    if kind == "closest":
+        lanes = torch.nonzero(live).squeeze(1)
+        count, tris, used = treelet_counts(tg, o, d, mn, mx, lanes,
+                                           limit=result[0])
+        n, n_tris = int(count.sum()), int(tris.sum())
+        out_bytes, tri_bytes = 16, 9 * 4 + 4
+    else:
+        lanes = torch.nonzero(live & ~result).squeeze(1)
+        count, tris, used = treelet_counts(tg, o, d, mn, mx, lanes)
+        occluded = int((live & result).sum())
+        n = int(count.sum()) + occluded
+        n_tris = int(tris.sum()) + round(occluded * float(sizes.double()
+                                                            .mean()))
+        out_bytes, tri_bytes = 1, 9 * 4
+    ops = n * OPS_SLAB + n_tris * OPS_MT[kind]
+    nbytes = (b * (32 + out_bytes) + int(used.sum()) * 6 * 4
+              + int(sizes[used].sum()) * tri_bytes)
+    t_ops, t_bytes = ops / PEAK_FP32_OPS, nbytes / PEAK_BYTES
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "fp32_ops": ops, "bytes": nbytes, "treelets_needed": n,
+            "triangles_needed": n_tris,
+            "treelets_per_live_lane": n / max(int(live.sum()), 1),
+            "treelets_any_lane_needs": int(used.sum()),
+            "pad_slot_share": 1.0 - float(sizes.sum()) / tg.block.shape[0]
+            / tg.block.shape[2]}
+
+
+def with_bound(res, bound):
+    """A timed result with its bound and the share of the bound it
+    reaches (bound / time)."""
+    return {**res, "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"],
+            "share_of_bound": bound["bound_ms"] / res["ms"],
+            "bound_work": {k: v for k, v in bound.items()
+                           if k not in ("bound_ms", "bound_by")}}
+
+
+def ptxas_report(log):
+    """{kernel entry: registers, static shared memory and spills} from
+    the -Xptxas -v lines of the kernels' build."""
+    rep, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)'?", ln)
+        if m:
+            cur = rep.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            cur["spill_store_bytes"] = int(m.group(1))
+            cur["spill_load_bytes"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            cur["static_smem_bytes"] = int(m.group(1)) if m else 0
+    return rep
+
+
+def kernel_resources(info, kernel):
+    """The ptxas report of every entry whose name holds `kernel`."""
+    return {name: r for name, r in info["ptxas"].items() if kernel in name} \
+        or "not reported: the library was built by an earlier process"
+
+
 def phase_device():
     from bpt_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     lib = _build.library()
-    ptxas = [ln.strip() for ln in lib.build_log.splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    ptxas = ptxas_report(lib.build_log)
     info = {
         "phase": "device",
         "nvidia_smi": nvidia_smi_line(),
@@ -255,16 +394,18 @@ def phase_k1(scene, rays):
                                               kind="ray"))
         raw = [x.contiguous() for x in raw_rays[name]]
         raw_ms = cuda_ms(lambda: closest_hit(tg, *raw))
-        out[name] = {"lanes": o.shape[0], "live": int((mx >= mn).sum()),
-                     "hits": int((ref[1] >= 0).sum()), **rep,
-                     "ms": k_ms, "plain_ms": p_ms, "compact_ms": cmp_ms,
-                     "ms_uncompacted": raw_ms}
+        out[name] = with_bound(
+            {"lanes": o.shape[0], "live": int((mx >= mn).sum()),
+             "hits": int((ref[1] >= 0).sum()), **rep, "ms": k_ms,
+             "plain_ms": p_ms, "compact_ms": cmp_ms,
+             "ms_uncompacted": raw_ms},
+            trace_bound(tg, (o, d, mn, mx), "closest", ref))
         if rep["tri_mismatch"] or any(rep["t_u_v_bit_mismatch"]):
             emit(out, t0)
             raise AssertionError(f"K1 disagrees with its plain version on "
                                  f"the {name} batch")
         if name == "walk":
-            timing = (k_ms, p_ms, rep["max_abs_err"])
+            timing = out[name]
     emit(out, t0)
     return timing
 
@@ -287,14 +428,17 @@ def phase_k2(scene, segs):
     p_ms = cuda_ms(lambda: any_hit_plain(tg, o, d, mn, mx), reps=2)
     cmp_ms = cuda_ms(lambda: compact_rays(*raw_segs, bounds=scene_bounds(tg)))
     raw_ms = cuda_ms(lambda: any_hit(tg, *raw_segs))
-    out = {"phase": "k2_any_hit", "lanes": o.shape[0],
-           "live": int((mx >= mn).sum()), "occluded": int(ref.sum()),
-           "flag_mismatch": bad, "ms": k_ms, "plain_ms": p_ms,
-           "compact_ms": cmp_ms, "ms_uncompacted": raw_ms}
+    out = with_bound(
+        {"phase": "k2_any_hit", "lanes": o.shape[0],
+         "live": int((mx >= mn).sum()), "occluded": int(ref.sum()),
+         "flag_mismatch": bad, "ms": k_ms, "plain_ms": p_ms,
+         "compact_ms": cmp_ms, "ms_uncompacted": raw_ms,
+         "max_abs_err": flag_err},
+        trace_bound(tg, (o, d, mn, mx), "any", ref))
     emit(out, t0)
     if bad:
         raise AssertionError("K2 disagrees with its plain version")
-    return k_ms, p_ms, flag_err, bad
+    return out
 
 
 def phase_large_scene(device):
@@ -333,18 +477,22 @@ def phase_large_scene(device):
     return scene, cfg
 
 
-def phase_k3(large, large_rays, bench, bench_rays):
-    """K3 against its plain version bit for bit on the large scene at the
-    slice's closest-hit shapes; on the bench scene in chunks of 8, K3's t
-    against K1's."""
+def phase_k3(large, large_rays, bench, bench_rays, info):
+    """K3 on the large scene at the slice's closest-hit shapes, bit for
+    bit against its plain version and against K1's plain version (the
+    same function); on the bench scene in groups of 8, bit for bit
+    against its plain version and K1."""
     from bpt_tpu_torch.ops.intersect import STREAM_CHUNK
     from bpt_tpu_torch.ops.trace_closest import closest_hit, \
-        closest_hit_stream, closest_hit_stream_plain
+        closest_hit_plain, closest_hit_stream, closest_hit_stream_plain
 
     t0 = time.perf_counter()
-    out = {"phase": "k3_closest_hit_stream", "chunk_nt": STREAM_CHUNK}
+    out = {"phase": "k3_closest_hit_stream", "chunk_nt": STREAM_CHUNK,
+           "nvidia_smi": info["nvidia_smi"],
+           "ptxas": kernel_resources(info, "closest_hit_stream_kernel")}
     tg = large.treelets
     timing = None
+    failed = []
     for name, args in large_rays[0].items():
         got = closest_hit_stream(tg, *args, STREAM_CHUNK)
         tp = time.perf_counter()
@@ -352,19 +500,24 @@ def phase_k3(large, large_rays, bench, bench_rays):
         torch.cuda.synchronize()
         plain_wall = time.perf_counter() - tp
         rep = closest_report(got, ref)
+        vs_k1 = closest_report(got, closest_hit_plain(tg, *args))
         k_ms = cuda_ms(lambda: closest_hit_stream(tg, *args, STREAM_CHUNK))
         p_ms = cuda_ms(lambda: closest_hit_stream_plain(tg, *args,
                                                         STREAM_CHUNK), reps=1)
-        out["large_" + name] = {
-            "lanes": args[0].shape[0], "live": int((args[3] >= args[2]).sum()),
-            "hits": int((ref[1] >= 0).sum()), **rep, "ms": k_ms,
-            "plain_ms": p_ms, "plain_first_call_s": plain_wall}
-        if rep["tri_mismatch"] or any(rep["t_u_v_bit_mismatch"]):
-            emit(out, t0)
-            raise AssertionError(f"K3 disagrees with its plain version on "
-                                 f"the large scene's {name} batch")
+        res = out["large_" + name] = with_bound(
+            {"lanes": args[0].shape[0],
+             "live": int((args[3] >= args[2]).sum()),
+             "hits": int((ref[1] >= 0).sum()), **rep,
+             "tri_mismatch_vs_k1": vs_k1["tri_mismatch"],
+             "t_u_v_bit_mismatch_vs_k1": vs_k1["t_u_v_bit_mismatch"],
+             "ms": k_ms, "plain_ms": p_ms, "plain_first_call_s": plain_wall},
+            trace_bound(tg, args, "closest", ref))
+        if (rep["tri_mismatch"] or any(rep["t_u_v_bit_mismatch"])
+                or vs_k1["tri_mismatch"]
+                or any(vs_k1["t_u_v_bit_mismatch"])):
+            failed.append("large_" + name)
         if name == "walk":
-            timing = (k_ms, p_ms, rep["max_abs_err"])
+            timing = res
 
     tg = bench.treelets
     for name, args in bench_rays[0].items():
@@ -372,34 +525,26 @@ def phase_k3(large, large_rays, bench, bench_rays):
         plain = closest_hit_stream_plain(tg, *args, BENCH_CHUNK)
         k1 = closest_hit(tg, *args)
         torch.cuda.synchronize()
-        live = args[3] >= args[2]
-        same = got[1] == k1[1]
         rep = {"vs_plain": closest_report(got, plain),
-               "t_bit_mismatch_vs_k1_live": bit_mismatch(got[0][live],
-                                                         k1[0][live]),
-               "tri_mismatch_vs_k1": int((~same).sum()),
-               "tri_mismatch_frac_vs_k1": float((~same).double().mean()),
-               "u_v_bit_mismatch_vs_k1_same_tri": [
-                   bit_mismatch(got[i][same], k1[i][same]) for i in (2, 3)]}
+               "vs_k1": closest_report(got, k1)}
         out[f"bench_{name}_chunk{BENCH_CHUNK}"] = rep
-        if (rep["vs_plain"]["tri_mismatch"]
-                or any(rep["vs_plain"]["t_u_v_bit_mismatch"])
-                or rep["t_bit_mismatch_vs_k1_live"]
-                or rep["tri_mismatch_frac_vs_k1"] > 0.02
-                or any(rep["u_v_bit_mismatch_vs_k1_same_tri"])):
-            emit(out, t0)
-            raise AssertionError(f"K3 at chunk {BENCH_CHUNK} disagrees on the "
-                                 f"bench scene's {name} batch")
+        if any(r["tri_mismatch"] or any(r["t_u_v_bit_mismatch"])
+               for r in rep.values()):
+            failed.append(f"bench_{name}")
     emit(out, t0)
+    if failed:
+        raise AssertionError(f"K3 disagrees with its plain version or K1 "
+                             f"on {failed}")
     return timing
 
 
-def phase_k4(large, large_segs, bench, bench_segs):
-    """K4 against its plain version on the large scene's connect batch;
-    on the bench scene in chunks of 8, K4 against K2."""
+def phase_k4(large, large_segs, bench, bench_segs, info):
+    """K4 against its plain version and K2's plain version on the large
+    scene's connect batch; on the bench scene in groups of 8, against
+    its plain version and K2."""
     from bpt_tpu_torch.ops.intersect import STREAM_CHUNK
-    from bpt_tpu_torch.ops.trace_any import any_hit, any_hit_stream, \
-        any_hit_stream_plain
+    from bpt_tpu_torch.ops.trace_any import any_hit, any_hit_plain, \
+        any_hit_stream, any_hit_stream_plain
 
     t0 = time.perf_counter()
     tg = large.treelets_any
@@ -410,15 +555,21 @@ def phase_k4(large, large_segs, bench, bench_segs):
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - tp
     bad = int((got != ref).sum())
+    bad_k2 = int((got != any_hit_plain(tg, o, d, mn, mx)).sum())
     flag_err = float((got.int() - ref.int()).abs().max())
     k_ms = cuda_ms(lambda: any_hit_stream(tg, o, d, mn, mx, STREAM_CHUNK))
     p_ms = cuda_ms(lambda: any_hit_stream_plain(tg, o, d, mn, mx,
                                                 STREAM_CHUNK), reps=1)
+    res = with_bound(
+        {"lanes": o.shape[0], "live": int((mx >= mn).sum()),
+         "occluded": int(ref.sum()), "flag_mismatch": bad,
+         "flag_mismatch_vs_k2_plain": bad_k2, "ms": k_ms, "plain_ms": p_ms,
+         "plain_first_call_s": plain_wall, "max_abs_err": flag_err},
+        trace_bound(tg, (o, d, mn, mx), "any", ref))
     out = {"phase": "k4_any_hit_stream", "chunk_nt": STREAM_CHUNK,
-           "large": {"lanes": o.shape[0], "live": int((mx >= mn).sum()),
-                     "occluded": int(ref.sum()), "flag_mismatch": bad,
-                     "ms": k_ms, "plain_ms": p_ms,
-                     "plain_first_call_s": plain_wall}}
+           "nvidia_smi": info["nvidia_smi"],
+           "ptxas": kernel_resources(info, "any_hit_stream_kernel"),
+           "large": res}
     tg = bench.treelets_any
     args = bench_segs[1]
     got_b = any_hit_stream(tg, *args, BENCH_CHUNK)
@@ -430,9 +581,10 @@ def phase_k4(large, large_segs, bench, bench_segs):
         "flag_mismatch_vs_plain": int((got_b != plain_b).sum()),
         "flag_mismatch_vs_k2": int((got_b != k2).sum())}
     emit(out, t0)
-    if bad or int((got_b != plain_b).sum()) or int((got_b != k2).sum()):
+    if (bad or bad_k2 or int((got_b != plain_b).sum())
+            or int((got_b != k2).sum())):
         raise AssertionError("K4 disagrees with its plain version or K2")
-    return k_ms, p_ms, flag_err, bad
+    return res
 
 
 def phase_closest_kernel(phase, kernel, plain, tables, exact_vs_k1):
@@ -452,17 +604,19 @@ def phase_closest_kernel(phase, kernel, plain, tables, exact_vs_k1):
             k1, k1_ms = run_timed(lambda: closest_hit(tg, *args), REPS)
             rep = closest_report(got, ref)
             same = got[1] == k1[1]
-            res = {"n_treelets": tg.block.shape[0], "lanes": args[0].shape[0],
-                   "live": int((args[3] >= args[2]).sum()),
-                   "hits": int((ref[1] >= 0).sum()), **rep, "ms": k_ms,
-                   "plain_ms": p_ms, "k1_ms": k1_ms,
-                   "t_bit_mismatch_vs_k1": bit_mismatch(got[0], k1[0]),
-                   # t is K1's on every lane, so each of these lanes is a
-                   # tie at exactly the same t.
-                   "tri_mismatch_vs_k1_exact_t_ties": int((~same).sum()),
-                   "u_v_bit_mismatch_vs_k1_same_tri": [
-                       bit_mismatch(got[i][same], k1[i][same])
-                       for i in (2, 3)]}
+            res = with_bound(
+                {"n_treelets": tg.block.shape[0], "lanes": args[0].shape[0],
+                 "live": int((args[3] >= args[2]).sum()),
+                 "hits": int((ref[1] >= 0).sum()), **rep, "ms": k_ms,
+                 "plain_ms": p_ms, "k1_ms": k1_ms,
+                 "t_bit_mismatch_vs_k1": bit_mismatch(got[0], k1[0]),
+                 # t is K1's on every lane, so each of these lanes is a
+                 # tie at exactly the same t.
+                 "tri_mismatch_vs_k1_exact_t_ties": int((~same).sum()),
+                 "u_v_bit_mismatch_vs_k1_same_tri": [
+                     bit_mismatch(got[i][same], k1[i][same])
+                     for i in (2, 3)]},
+                trace_bound(tg, args, "closest", ref))
             out[f"{tname}_{name}"] = res
             if (rep["tri_mismatch"] or any(rep["t_u_v_bit_mismatch"])
                     or res["t_bit_mismatch_vs_k1"]
@@ -471,7 +625,7 @@ def phase_closest_kernel(phase, kernel, plain, tables, exact_vs_k1):
                         and res["tri_mismatch_vs_k1_exact_t_ties"])):
                 failed.append(f"{tname}_{name}")
             if (tname, name) == ("bench", "walk"):
-                timing = (k_ms, p_ms, rep["max_abs_err"])
+                timing = res
     emit(out, t0)
     if failed:
         raise AssertionError(f"{phase} disagrees on {failed}")
@@ -494,17 +648,19 @@ def phase_k7(tables):
                               1)
         k2, k2_ms = run_timed(lambda: any_hit(tg, o, d, mn, mx), REPS)
         bad = int((got != ref).sum())
-        res = {"n_treelets": tg.block.shape[0], "lanes": o.shape[0],
-               "live": int((mx >= mn).sum()), "occluded": int(ref.sum()),
-               "flag_mismatch": bad,
-               "flag_mismatch_vs_k2": int((got != k2).sum()),
-               "ms": k_ms, "plain_ms": p_ms, "k2_ms": k2_ms}
+        res = with_bound(
+            {"n_treelets": tg.block.shape[0], "lanes": o.shape[0],
+             "live": int((mx >= mn).sum()), "occluded": int(ref.sum()),
+             "flag_mismatch": bad,
+             "flag_mismatch_vs_k2": int((got != k2).sum()),
+             "max_abs_err": float((got.int() - ref.int()).abs().max()),
+             "ms": k_ms, "plain_ms": p_ms, "k2_ms": k2_ms},
+            trace_bound(tg, (o, d, mn, mx), "any", ref))
         out[tname] = res
         if bad or res["flag_mismatch_vs_k2"]:
             failed.append(tname)
         if tname == "bench":
-            timing = (k_ms, p_ms, float((got.int() - ref.int()).abs().max()),
-                      bad)
+            timing = res
     emit(out, t0)
     if failed:
         raise AssertionError(f"K7 disagrees on {failed}")
@@ -655,7 +811,7 @@ def phase_slice(scene, cam, device, smi):
     # harness; results are unchanged because dead lanes miss in the
     # kernels either way).
     walls, walls_nc = [wall], []
-    for swapped in (True, True, False, False, True):
+    for swapped in (True, False, True):
         tw = time.perf_counter()
         if swapped:
             with mock.patch.object(api, "compact_rays", _identity_layout):
@@ -725,10 +881,9 @@ def phase_slice_routed(phase, scene, cam, device, smi, routes, counts, base,
         launches, plain_calls = read_counts()
         peak = torch.cuda.max_memory_allocated()
         walls = [wall]
-        for _ in range(2):
-            tw = time.perf_counter()
-            chunk()
-            walls.append(time.perf_counter() - tw)
+        tw = time.perf_counter()
+        chunk()
+        walls.append(time.perf_counter() - tw)
         wall_med = statistics.median(walls)
         prof = _profile_batch(scene, cam_consts, cfg, key,
                               wall_med / (cfg.spp // BENCH["sb"]))
@@ -805,11 +960,23 @@ def phase_slice_large(scene, cfg_t, device, smi):
            "peak_mem_bytes": peak, "launches": launches,
            "plain_calls_on_cuda": plain_calls,
            "image_mean": float(fb.mean()),
-           "finite": bool(torch.isfinite(fb).all())}
-    out.update(_profile_batch(scene, cam_consts, cfg, key,
-                              wall / (cfg.spp // BENCH["sb"])))
+           "finite": bool(torch.isfinite(fb).all()),
+           "nrays_before_redesign": LARGE_NRAYS_BEFORE,
+           "nrays_rel_vs_before": abs(nrays - LARGE_NRAYS_BEFORE)
+           / LARGE_NRAYS_BEFORE}
+    batches = cfg.spp // BENCH["sb"]
+    out.update(_profile_batch(scene, cam_consts, cfg, key, wall / batches))
     emit(out, t0)
     check_render(out, used=("k3_closest_hit_stream", "k4_any_hit_stream"))
+    # Per batch: the primary trace and seven walk depths through K3, the
+    # one connect any-hit through K4.
+    if (launches["k3_closest_hit_stream"], launches["k4_any_hit_stream"]) \
+            != (8 * batches, batches):
+        raise AssertionError(f"slice_large launched {launches} in "
+                             f"{batches} batches")
+    if out["nrays_rel_vs_before"] > 1e-3:
+        raise AssertionError(f"slice_large traced {nrays} rays, "
+                             f"{LARGE_NRAYS_BEFORE} before the redesign")
     return launches
 
 
@@ -909,8 +1076,8 @@ def main():
     large, cfg_t = phase_large_scene(device)
     large_rays = compacted_k1_inputs(large, cfg_t.camera, device)
     large_segs = k2_inputs(large, device, n_connect)
-    k3 = phase_k3(large, large_rays, scene, bench_rays)
-    k4 = phase_k4(large, large_segs, scene, bench_segs)
+    k3 = phase_k3(large, large_rays, scene, bench_rays, info)
+    k4 = phase_k4(large, large_segs, scene, bench_segs, info)
     del large_rays, large_segs
     scene6 = phase_subdiv6(device)
     rays6 = compacted_k1_inputs(scene6, cam, device)[0]
@@ -970,12 +1137,16 @@ def main():
     ]
     rows = []
     for name, src, replaces, count, res in kernels:
+        # No single PyTorch call computes a closest hit or an occlusion
+        # test over a treelet table, so there is no library time.
         row = {"name": name, "route": "cuda",
                "source": "bpt_tpu_torch/csrc/" + src, "replaces": replaces,
-               "launches": launches[count], "max_abs_err": res[2],
-               "ms": res[0], "plain_ms": res[1]}
-        if len(res) > 3:
-            row["flag_mismatch"] = res[3]
+               "launches": launches[count], "max_abs_err": res["max_abs_err"],
+               "ms": res["ms"], "plain_ms": res["plain_ms"],
+               "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+               "library_ms": None}
+        if "flag_mismatch" in res:
+            row["flag_mismatch"] = res["flag_mismatch"]
         rows.append(row)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

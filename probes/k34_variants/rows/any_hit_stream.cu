@@ -1,0 +1,167 @@
+// K4: occlusion (any hit) over a treelet table of any size, one thread
+// per segment, the table taken in groups of g treelets behind their union
+// boxes.
+//
+// Replaces the TPU kernel bpt_tpu/ops/pallas_sweep.py::_any_stream_kernel
+// / _any_loop (entry trace_any_stream), which the reference routes to when
+// the any-hit tables exceed its VMEM budget.  What it computes is K2's
+// occlusion flag (any_hit.cu): a segment is occluded when a triangle of a
+// slab-overlapped treelet gives a hit with t in [min_t, max_t]; dead lanes
+// (max_t < min_t) never are.  The flag does not depend on the order in
+// which treelets are tested, so it equals K2's on every segment whatever
+// the group size.
+//
+// What bounds it on an H100: the FP32 work the flags need (one treelet of
+// an occluded segment, every overlapped treelet of an open one) is well
+// under a millisecond for the 8.26M-segment connect batch; above that is
+// box work and divergence.  The design, against each cost:
+//   * Group level: a segment slab-tests the NT / g group boxes in index
+//     order and only the members of groups it overlaps, so an unoccluded
+//     segment that crosses empty space costs about NT / g box tests
+//     instead of NT; it leaves at its first hit.
+//   * Boxes in shared memory: the group boxes always, the member boxes
+//     when the table fits two blocks to an SM (intersect.cuh,
+//     BPT_STREAM_RESIDENT_BYTES), else from global memory through the
+//     read-only cache.  Loaded once per block.
+//   * Persistent threads (intersect.cuh::for_each_lane): a settled thread
+//     takes the next segment instead of idling until its block ends, and
+//     a block loads its boxes once.
+//   * Triangle rows (accel/treelets.py::triangle_rows): three 16-byte
+//     loads a triangle where K2's block takes nine 4-byte loads, as in K3
+//     (closest_hit_stream.cu).
+#include "intersect.cuh"
+
+namespace {
+
+using namespace bpt;
+
+template <bool kResident>
+__device__ __forceinline__ bool any_grouped(
+    const float* gboxes, int ng, int g, const float* mboxes,
+    const float* __restrict__ bmin, const float* __restrict__ bmax, int nt,
+    const float* __restrict__ rows, int k, const Ray& r) {
+  for (int gi = 0; gi < ng; ++gi) {
+    float ge;
+    if (!slab(&gboxes[gi * 6], r, &ge)) continue;
+    const int j1 = min(gi * g + g, nt);
+    for (int j = gi * g; j < j1; ++j) {
+      float box[6];
+      member_box<kResident>(box, mboxes, bmin, bmax, j);
+      float e;
+      if (!slab(box, r, &e)) continue;
+      if (any_in_treelet<true>(rows, k, (size_t)j, r)) return true;
+    }
+  }
+  return false;
+}
+
+template <bool kResident>
+__global__ void __launch_bounds__(kStreamThreads, 2)
+any_hit_stream_kernel(const float* __restrict__ bmin,
+                      const float* __restrict__ bmax,
+                      const float* __restrict__ gmin,
+                      const float* __restrict__ gmax,
+                      const float* __restrict__ rows, int nt, int ng, int g,
+                      int k, const float* __restrict__ ray_o,
+                      const float* __restrict__ ray_d,
+                      const float* __restrict__ min_t,
+                      const float* __restrict__ max_t, int b,
+                      uint8_t* __restrict__ occ_out, int* counter) {
+  extern __shared__ float smem[];
+  float* gboxes = smem;           // (ng, 6)
+  float* mboxes = smem + ng * 6;  // (nt, 6) when resident
+  load_boxes(gboxes, gmin, gmax, 0, ng);
+  if (kResident) load_boxes(mboxes, bmin, bmax, 0, nt);
+  __syncthreads();
+#if BPT_ANY_STEPS
+  // One treelet at a time: a thread runs its box tests up to the next
+  // member its segment overlaps, the threads that found one test its
+  // triangles together, and a thread whose segment settled takes the
+  // next segment at once, while the others of its warp go on.
+  int lane = -1;
+  Ray r;
+  int gi = 0, j = 0, j1 = 0;
+  while (true) {
+    if (lane < 0) {
+      lane = next_lane(counter);
+      if (lane >= b) break;
+      r = load_ray(ray_o, ray_d, min_t, max_t, lane);
+      gi = r.mxt >= r.mnt ? 0 : ng;  // a dead lane has nothing to test
+      j = j1 = 0;
+    }
+    int cand = -1;
+    while (cand < 0 && (j < j1 || gi < ng)) {
+      float e;
+      if (j < j1) {
+        float box[6];
+        member_box<kResident>(box, mboxes, bmin, bmax, j);
+        if (slab(box, r, &e)) cand = j;
+        ++j;
+      } else {
+        if (slab(&gboxes[gi * 6], r, &e)) {
+          j = gi * g;
+          j1 = min(j + g, nt);
+        }
+        ++gi;
+      }
+    }
+    if (cand < 0) {
+      occ_out[lane] = 0;
+      lane = -1;
+    } else if (any_in_treelet<true>(rows, k, (size_t)cand, r)) {
+      occ_out[lane] = 1;
+      lane = -1;
+    }
+  }
+#else
+  for_each_lane(b, counter, [&](int lane) {
+    const Ray r = load_ray(ray_o, ray_d, min_t, max_t, lane);
+    occ_out[lane] = (r.mxt >= r.mnt) &&
+                    any_grouped<kResident>(gboxes, ng, g, mboxes, bmin, bmax,
+                                           nt, rows, k, r);
+  });
+#endif
+}
+
+template <bool kResident>
+int launch(const float* bmin, const float* bmax, const float* gmin,
+           const float* gmax, const float* rows, int nt, int ng, int g,
+           int k, const float* ray_o, const float* ray_d, const float* min_t,
+           const float* max_t, int b, uint8_t* occ_out, int* counter,
+           cudaStream_t stream) {
+  const size_t smem = (size_t)(ng + (kResident ? nt : 0)) * 6 * sizeof(float);
+  int grid = 0;
+  const cudaError_t e = grouped_launch_config(
+      any_hit_stream_kernel<kResident>, smem, b, &grid);
+  if (e != cudaSuccess) return (int)e;
+  cudaMemsetAsync(counter, 0, sizeof(int), stream);
+  any_hit_stream_kernel<kResident><<<grid, kStreamThreads, smem, stream>>>(
+      bmin, bmax, gmin, gmax, rows, nt, ng, g, k, ray_o, ray_d, min_t,
+      max_t, b, occ_out, counter);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int bpt_any_hit_stream(const float* bmin, const float* bmax,
+                                  const float* gmin, const float* gmax,
+                                  const float* rows, int nt, int ng, int g,
+                                  int k, const float* ray_o,
+                                  const float* ray_d, const float* min_t,
+                                  const float* max_t, int b,
+                                  uint8_t* occ_out, int* counter,
+                                  void* stream) {
+  if (members_resident(nt, ng)) {
+    return launch<true>(bmin, bmax, gmin, gmax, rows, nt, ng, g, k, ray_o,
+                        ray_d, min_t, max_t, b, occ_out, counter,
+                        (cudaStream_t)stream);
+  }
+  return launch<false>(bmin, bmax, gmin, gmax, rows, nt, ng, g, k, ray_o,
+                       ray_d, min_t, max_t, b, occ_out, counter,
+                       (cudaStream_t)stream);
+}
+
+// The message of a CUDA error code, for the wrappers' exceptions.
+extern "C" const char* bpt_cuda_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}

@@ -92,8 +92,8 @@ def test_kernel_render_matches_plain_render(cuda_scene):
 
 @pytest.fixture(scope="module")
 def cuda_subdiv5():
-    """The glass box at subdiv 5 (235 treelets): chunks of 8, 64 and
-    STREAM_CHUNK leave a ragged last chunk."""
+    """The glass box at subdiv 5 (235 treelets): groups of 8, 64 and
+    STREAM_CHUNK leave a ragged last group."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     from bpt_tpu_torch.scene.procedural import cornell_box_scene
@@ -139,25 +139,87 @@ def test_any_stream_kernel_equal_to_plain(cuda_subdiv5, n, chunk):
 
 
 def test_stream_kernels_match_k1_k2_on_the_bench_scene(cuda_scene):
-    """19 treelets in chunks of 8: K4's flags are K2's, K3's t is K1's on
-    every lane, and tri/u/v differ only where two triangles tie at the
-    same t (at most 2% of the lanes)."""
+    """19 treelets in groups of 8: K3 is K1 bit for bit on every lane (t,
+    tri, u and v), and K4's flags are K2's."""
     from bpt_tpu_torch.ops.trace_any import any_hit, any_hit_stream
     from bpt_tpu_torch.ops.trace_closest import closest_hit, \
         closest_hit_stream
 
     args = _rays(65_536, seed=3)
-    got = closest_hit_stream(cuda_scene.treelets, *args, 8)
-    ref = closest_hit(cuda_scene.treelets, *args)
-    assert torch.equal(got[0].view(torch.int32), ref[0].view(torch.int32))
-    same = got[1] == ref[1]
-    assert float((~same).double().mean()) <= 0.02
-    for g, r in zip(got[2:], ref[2:]):
-        assert torch.equal(g[same].view(torch.int32),
-                           r[same].view(torch.int32))
+    _bit_equal_closest(closest_hit_stream(cuda_scene.treelets, *args, 8),
+                       closest_hit(cuda_scene.treelets, *args))
     seg = _rays(65_536, seed=4, segment=True)
     assert torch.equal(any_hit_stream(cuda_scene.treelets_any, *seg, 8),
                        any_hit(cuda_scene.treelets_any, *seg))
+
+
+@pytest.fixture(scope="module")
+def cuda_large():
+    """The glass box at subdiv 7: 327,704 triangles, 3,656 treelets, the
+    large scene of the main path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from bpt_tpu_torch.scene.procedural import cornell_box_scene
+
+    scene, _, _ = cornell_box_scene(16, 16, device="cuda",
+                                    right_object="glass_sphere",
+                                    sphere_subdiv=7)
+    assert scene.treelets.block.shape[0] == 3_656
+    return scene
+
+
+@pytest.mark.parametrize("table", ["cuda_scene", "cuda_large"])
+def test_stream_kernels_bit_equal_to_k1_k2_plain(request, table):
+    """K3 at the route's group size is K1's plain version bit for bit,
+    and K4's flags are K2's plain version's, on the bench table and on
+    the large scene's table."""
+    from bpt_tpu_torch.ops.trace_any import any_hit_plain, any_hit_stream
+    from bpt_tpu_torch.ops.trace_closest import closest_hit_plain, \
+        closest_hit_stream
+
+    scene = request.getfixturevalue(table)
+    args = _rays(65_536, seed=13)
+    _bit_equal_closest(closest_hit_stream(scene.treelets, *args, STREAM_CHUNK),
+                       closest_hit_plain(scene.treelets, *args))
+    seg = _rays(65_536, seed=14, segment=True)
+    occ = any_hit_stream(scene.treelets_any, *seg, STREAM_CHUNK)
+    assert torch.equal(occ, any_hit_plain(scene.treelets_any, *seg))
+    assert 0 < int(occ.sum()) < int((seg[3] >= seg[2]).sum())
+
+
+def test_stream_kernels_above_the_shared_memory_budget(cuda_subdiv5):
+    """About 12,000 treelets (the 235-treelet table repeated): too many
+    member boxes for shared memory, so K3 and K4 read them from global
+    memory behind the resident group boxes.  K3 is K1's plain version
+    bit for bit and K4's flags are K2's plain version's.  With groups of
+    one treelet the group boxes alone exceed what a block may hold, and
+    both wrappers raise instead of launching."""
+    from bpt_tpu_torch.ops.trace_any import any_hit_plain, any_hit_stream
+    from bpt_tpu_torch.ops.trace_closest import closest_hit_plain, \
+        closest_hit_stream
+
+    big = _repeated(cuda_subdiv5.treelets, 12_000)
+    big_any = _repeated(cuda_subdiv5.treelets_any, 12_000)
+    assert big.block.shape[0] == 12_220
+    args = _rays(4_096, seed=15)
+    _bit_equal_closest(closest_hit_stream(big, *args, STREAM_CHUNK),
+                       closest_hit_plain(big, *args))
+    seg = _rays(4_096, seed=16, segment=True)
+    assert torch.equal(any_hit_stream(big_any, *seg, STREAM_CHUNK),
+                       any_hit_plain(big_any, *seg))
+    for fn, tg, a in ((closest_hit_stream, big, args),
+                      (any_hit_stream, big_any, seg)):
+        launches = fn.launches
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fn(tg, *a, 1)
+        assert fn.launches == launches
+
+
+def _repeated(tg, n):
+    """A table of at least n treelets: tg's rows repeated."""
+    reps = -(-n // tg.block.shape[0])
+    return type(tg)(*(x.repeat((reps,) + (1,) * (x.ndim - 1)).contiguous()
+                      for x in tg))
 
 
 def test_unstreamed_kernels_refuse_large_tables(cuda_subdiv5):
@@ -171,10 +233,7 @@ def test_unstreamed_kernels_refuse_large_tables(cuda_subdiv5):
     from bpt_tpu_torch.ops.trace_closest import closest_hit_full, \
         closest_hit_sweep
 
-    tg = cuda_subdiv5.treelets
-    reps = MAX_TREELETS // tg.block.shape[0] + 1
-    big = type(tg)(*(x.repeat((reps,) + (1,) * (x.ndim - 1)).contiguous()
-                     for x in tg))
+    big = _repeated(cuda_subdiv5.treelets, MAX_TREELETS + 1)
     args = _rays(64, seed=5)
     for fn in (closest_hit, any_hit, closest_hit_full, closest_hit_sweep,
                any_hit_compact):

@@ -1,7 +1,8 @@
 """The large-scene path of the port on the CPU: the plain versions of K3
-(streamed closest hit) and K4 (streamed any hit) against the reference
-package's streaming Pallas kernels (interpret=True, as tests/
-test_stream.py runs them) and against the unstreamed plain versions, the
+(closest hit on a table of any size) and K4 (any hit) against the
+reference package's streaming Pallas kernels (interpret=True, as tests/
+test_stream.py runs them) and against K1's and K2's plain versions, the
+tables K3 and K4 derive (group boxes, triangle rows and counts), the
 treelet-count routing of accel/api.py, a render through the streamed
 route against the reference, and the scene-file entry (load_toml,
 load_scene) against the reference's."""
@@ -121,9 +122,9 @@ def test_any_stream_plain_matches_pallas_stream(stream_scenes, chunk_nt):
 @pytest.fixture(scope="module")
 def subdiv5():
     """The glass box at subdiv 5: 20,504 triangles, 235 treelets, so
-    chunks of 8 and 64 leave a ragged last chunk."""
-    scene, meta, _ = torch_cbox(16, 16, right_object="glass_sphere",
-                                sphere_subdiv=5)
+    groups of 8, 32 and 64 leave a ragged last group."""
+    scene, meta, _ = torch_cbox(16, 16, device="cpu",
+                                right_object="glass_sphere", sphere_subdiv=5)
     assert scene.treelets.block.shape[0] == 235
     return scene
 
@@ -144,25 +145,79 @@ def _box_rays(seed, n=3000, segment=False):
 
 @pytest.mark.parametrize("chunk_nt", [8, 64, 235])
 def test_streamed_plain_matches_unstreamed(subdiv5, chunk_nt):
-    """K3's plain version at any chunk gives K1's t on every lane; tri,
-    u, v may differ only where two triangles tie at exactly the same t
-    (the chunks change the visit order); at one chunk of all 235
-    treelets it is K1's plain version."""
+    """K3's plain version at any group size is K1's plain version on
+    every lane, t, tri, u and v alike (one visit order over the whole
+    table); K4's flags are K2's."""
     tg = subdiv5.treelets
     args = _box_rays(11)
     ref = tc.closest_hit_plain(tg, *args)
     got = tc.closest_hit_stream_plain(tg, *args, chunk_nt)
-    assert torch.equal(got[0], ref[0])
-    same = got[1] == ref[1]
-    assert float((~same).double().mean()) <= 0.02
-    for g, r in zip(got[2:], ref[2:]):
-        assert torch.equal(g[same], r[same])
-    if chunk_nt == 235:
-        assert bool(same.all())
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert int((ref[1] >= 0).sum()) > 1000
     seg = _box_rays(12, segment=True)
     occ = ta.any_hit_stream_plain(subdiv5.treelets_any, *seg, chunk_nt)
     assert torch.equal(occ, ta.any_hit_plain(subdiv5.treelets_any, *seg))
     assert 0 < int(occ.sum()) < int((seg[3] >= seg[2]).sum())
+
+
+@pytest.mark.parametrize("g", [1, 8, 32])
+def test_group_boxes_hold_their_members(subdiv5, g):
+    """group_boxes: ceil(235 / g) union boxes, each the exact union of
+    its members' boxes (so it contains them), built once per table and
+    group size.  A ray that enters a member's box enters its group's box,
+    which is what lets K3 and K4 skip a group's members."""
+    from bpt_tpu_torch.accel.treelets import group_boxes
+
+    tg = subdiv5.treelets
+    gmin, gmax = group_boxes(tg, g)
+    ng = -(-235 // g)
+    assert gmin.shape == gmax.shape == (ng, 3)
+    assert gmin.is_contiguous() and gmax.is_contiguous()
+    member_group = torch.arange(235) // g
+    assert bool((gmin[member_group] <= tg.bmin).all())
+    assert bool((gmax[member_group] >= tg.bmax).all())
+    for i in range(ng):
+        torch.testing.assert_close(gmin[i], tg.bmin[i * g:(i + 1) * g].amin(0),
+                                   rtol=0, atol=0)
+        torch.testing.assert_close(gmax[i], tg.bmax[i * g:(i + 1) * g].amax(0),
+                                   rtol=0, atol=0)
+    again = group_boxes(tg, g)
+    assert again[0] is gmin and again[1] is gmax
+    from bpt_tpu_torch.ops.intersect import slab
+
+    args = _box_rays(16)
+    member, _ = slab(tg.bmin, tg.bmax, *args)
+    group, _ = slab(gmin, gmax, *args)
+    assert bool(member.any())
+    assert not bool((member & ~group[:, member_group]).any())
+
+
+def test_triangle_rows_hold_the_block(subdiv5):
+    """triangle_rows: (NT, K, 12) rows, slot k of treelet j holding the
+    block's (v0, e1, e2) column k and three zeros; triangle_counts: the
+    slots before each treelet's pads, which are the slots whose triangle
+    index is a real triangle's (the cut fills a treelet's first slots
+    and pads the rest with the pad triangle T).  Both built once per
+    table."""
+    from bpt_tpu_torch.accel.treelets import triangle_counts, triangle_rows
+
+    tg = subdiv5.treelets
+    rows = triangle_rows(tg)
+    nt, _, k = tg.block.shape
+    assert rows.shape == (nt, k, 12) and rows.dtype == torch.float32
+    assert rows.is_contiguous()
+    assert torch.equal(rows[..., :9], tg.block.transpose(1, 2))
+    assert not bool(rows[..., 9:].any())
+    assert triangle_rows(tg) is rows
+    counts = triangle_counts(tg)
+    pad = int(tg.tri_index.max())
+    assert counts.dtype == torch.int32 and counts.shape == (nt,)
+    assert torch.equal(counts, (tg.tri_index < pad).sum(dim=1).int())
+    assert 0 < int(counts.min()) and int(counts.max()) <= k
+    slots = torch.arange(k)
+    assert not bool(tg.block.transpose(1, 2)[slots >= counts[:, None]].any())
+    assert triangle_counts(tg) is counts
 
 
 def _counting(monkeypatch, name):
