@@ -2,9 +2,11 @@
 
 A port of `bpt_tpu` (the JAX package, which stays the reference) to
 PyTorch on an NVIDIA Hopper GPU.  The layout mirrors `bpt_tpu` module for
-module; plain tensor code is eager PyTorch, and the two trace kernels of
-the main path (closest hit and any hit) are hand-written CUDA C++ under
-`csrc/`, built with nvcc at first use (`ops/_build.py`).
+module; plain tensor code is eager PyTorch, and the seven trace kernels
+(closest hit and any hit: K1 and K2 on tables of at most 2,048 treelets,
+the main path's; K3 and K4 on tables of any size; K5-K7, the
+counterparts of the reference's other kernels) are hand-written CUDA C++
+under `csrc/`, built with nvcc at first use (`ops/_build.py`).
 
 Every wrapper around a kernel runs its plain PyTorch version for tensors
 on the CPU and launches the kernel for CUDA tensors; there is no other

@@ -8,11 +8,13 @@ span a contiguous BVH-order range of at most K.  `TreeletGeom` /
 `make_treelet_geom` port bpt_tpu/accel/binned.py:35-62 (the rest of
 binned.py is an XLA tracer for the TPU and has no counterpart here).
 `TraceGeom` mirrors bpt_tpu/accel/traverse.py's record so that a scene
-has the same fields in both packages.  `group_boxes` and
-`triangle_rows` are the port's own: the union box of each run of G
-consecutive treelets, which the streamed kernels K3 and K4 test before
-the members' boxes, and the triangles laid out one slot per 48 bytes
-for those kernels' loads.
+has the same fields in both packages.  `group_boxes`, `triangle_rows`,
+`triangle_counts` and `packed_triangles` are the port's own: the union
+box of each run of G consecutive treelets, which the streamed kernels K3
+and K4 test before the members' boxes; the triangles laid out one slot
+per 48 bytes for those kernels' loads, with each treelet's count of
+slots up to its last triangle; and, for K1 and K2, the same rows packed
+to their counts behind an offset table.
 """
 from __future__ import annotations
 
@@ -179,6 +181,32 @@ def triangle_counts(tg: TreeletGeom) -> torch.Tensor:
         return torch.where(filled, slot, 0).amax(dim=1)
 
     return _derived(tg.block, "counts", build)
+
+
+def packed_triangles(tg: TreeletGeom):
+    """The triangles of `tg` packed to their counts, for K1 and K2:
+    (rows, offsets).  `rows` is (S, 12) i32, S = sum(triangle_counts):
+    treelet j's slots [0, count_j) in slot order as rows [offsets[j],
+    offsets[j + 1]), each the bits of (v0 xyz, e1 xyz, e2 xyz) followed
+    by the slot's `tri_index` and two zeros, 48 bytes, 16-byte aligned.
+    `offsets` is (NT + 1,) i32.  The pad slots past a treelet's last
+    triangle are left out (no ray hits them), so the bench table's rows
+    fit in a block's shared memory.  Built once per block."""
+    def build():
+        nt, _, k = tg.block.shape
+        counts = triangle_counts(tg)
+        offsets = torch.zeros((nt + 1,), dtype=torch.int32,
+                              device=counts.device)
+        offsets[1:] = torch.cumsum(counts, dim=0)
+        keep = (torch.arange(k, device=counts.device)[None, :]
+                < counts[:, None])  # (NT, K), row-major = slot order
+        rows = torch.zeros((int(offsets[-1]), 12), dtype=torch.int32,
+                           device=counts.device)
+        rows[:, :9] = tg.block.transpose(1, 2)[keep].view(torch.int32)
+        rows[:, 9] = tg.tri_index[keep]
+        return rows, offsets
+
+    return _derived(tg.block, "packed", build)
 
 
 def group_boxes(tg: TreeletGeom, g: int):

@@ -62,8 +62,9 @@ def threefry2x32(k1, k2, x1, x2):
     return x1, x2
 
 
-def key(seed: int, device=None):
-    """The raw key of `jax.random.key(seed)` as a (2,) int64 tensor."""
+def key(seed: int, device="cuda"):
+    """The raw key of `jax.random.key(seed)` as a (2,) int64 tensor, on
+    the card unless `device` says otherwise (CPU code passes "cpu")."""
     seed = int(seed)
     return torch.tensor([(seed >> 32) & _MASK, seed & _MASK],
                         dtype=torch.int64, device=device)

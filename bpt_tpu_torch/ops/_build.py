@@ -45,10 +45,15 @@ _CLOSEST = (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P)
 # bmin, bmax, block, nt, k, o, d, min_t, max_t, b, occ, stream
 _ANY = (_P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P)
 _SIGNATURES = {
-    "bpt_closest_hit": _CLOSEST,
+    # bmin, bmax, rows, offsets, nt, n_rows, o, d, min_t, max_t, b,
+    # t, tri, u, v, counter, stream
+    "bpt_closest_hit": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P,
+                        _P, _P, _P, _P),
     "bpt_closest_hit_full": _CLOSEST,
     "bpt_closest_hit_sweep": _CLOSEST,
-    "bpt_any_hit": _ANY,
+    # bmin, bmax, rows, offsets, nt, n_rows, o, d, min_t, max_t, b, occ,
+    # counter, stream
+    "bpt_any_hit": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P),
     "bpt_any_hit_compact": _ANY,
     # bmin, bmax, gmin, gmax, rows, counts, tri_index, nt, ng, g, k, o, d,
     # min_t, max_t, b, t, tri, u, v, counter, stream

@@ -25,7 +25,8 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ..accel.treelets import group_boxes, triangle_counts, triangle_rows
+from ..accel.treelets import (group_boxes, packed_triangles, triangle_counts,
+                              triangle_rows)
 from .intersect import SLAB_ELEMS, check_trace_args, moller_trumbore, slab
 
 # (segment, treelet) pairs per triangle-test step of the plain versions.
@@ -98,17 +99,22 @@ any_hit_compact_plain.cuda_calls = 0
 
 def any_hit(tg, o, d, min_t, max_t):
     """K2: occlusion flags (B,) bool of segments (B, 3) with (B,) windows
-    against a table of at most MAX_TREELETS treelets."""
+    against a table of at most MAX_TREELETS treelets.  The kernel reads
+    the table's boxes and its packed triangles
+    (accel/treelets.py::packed_triangles)."""
     b, nt, k = check_trace_args(tg, o, d, min_t, max_t)
     if o.device.type == "cpu":
         return any_hit_plain(tg, o, d, min_t, max_t)
     occ = torch.empty((b,), dtype=torch.bool, device=o.device)
     if b == 0:
         return occ
+    rows, offsets = packed_triangles(tg)
+    counter = torch.zeros((1,), dtype=torch.int32, device=o.device)
     _build.launch("bpt_any_hit", o.device, tg.bmin.data_ptr(),
-                  tg.bmax.data_ptr(), tg.block.data_ptr(), nt, k,
-                  o.data_ptr(), d.data_ptr(), min_t.data_ptr(),
-                  max_t.data_ptr(), b, occ.data_ptr())
+                  tg.bmax.data_ptr(), rows.data_ptr(), offsets.data_ptr(), nt,
+                  rows.shape[0], o.data_ptr(), d.data_ptr(),
+                  min_t.data_ptr(), max_t.data_ptr(), b, occ.data_ptr(),
+                  counter.data_ptr())
     any_hit.launches += 1
     return occ
 

@@ -34,7 +34,8 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ..accel.treelets import group_boxes, triangle_counts, triangle_rows
+from ..accel.treelets import (group_boxes, packed_triangles, triangle_counts,
+                              triangle_rows)
 from .intersect import SLAB_ELEMS, check_trace_args, moller_trumbore, slab
 
 # Lanes per tile of K6: one CUDA block (csrc/intersect.cuh kThreads) and
@@ -198,7 +199,8 @@ def _outputs(b, device):
 
 
 def _launch_closest(name, tg, o, d, min_t, max_t, b, nt, k):
-    """Launch a closest-hit kernel with K1's C interface."""
+    """Launch a closest-hit kernel that reads the (NT, 9, K) block (K5,
+    K6)."""
     out = _outputs(b, o.device)
     if b:
         _build.launch(name, o.device, tg.bmin.data_ptr(), tg.bmax.data_ptr(),
@@ -210,13 +212,23 @@ def _launch_closest(name, tg, o, d, min_t, max_t, b, nt, k):
 
 def closest_hit(tg, o, d, min_t, max_t):
     """K1: closest hit of rays (B, 3) with (B,) windows against a table of
-    at most MAX_TREELETS treelets.  Returns (t, tri, u, v), each (B,)."""
+    at most MAX_TREELETS treelets.  Returns (t, tri, u, v), each (B,).
+    The kernel reads the table's boxes and its packed triangles
+    (accel/treelets.py::packed_triangles)."""
     b, nt, k = check_trace_args(tg, o, d, min_t, max_t)
     if o.device.type == "cpu":
         return closest_hit_plain(tg, o, d, min_t, max_t)
-    out = _launch_closest("bpt_closest_hit", tg, o, d, min_t, max_t, b, nt,
-                          k)
-    closest_hit.launches += int(b > 0)
+    out = _outputs(b, o.device)
+    if b == 0:
+        return out
+    rows, offsets = packed_triangles(tg)
+    counter = torch.zeros((1,), dtype=torch.int32, device=o.device)
+    _build.launch("bpt_closest_hit", o.device, tg.bmin.data_ptr(),
+                  tg.bmax.data_ptr(), rows.data_ptr(), offsets.data_ptr(), nt,
+                  rows.shape[0], o.data_ptr(), d.data_ptr(),
+                  min_t.data_ptr(), max_t.data_ptr(), b,
+                  *(x.data_ptr() for x in out), counter.data_ptr())
+    closest_hit.launches += 1
     return out
 
 

@@ -5,18 +5,21 @@
 Builds the port's seven CUDA kernels from bpt_tpu_torch/csrc/ and checks
 each one against its plain PyTorch version at the main paths' shapes:
 K1-K4 as the routes of `accel/api.py` use them (K3 and K4 also against
-K1's and K2's plain versions, whose functions they compute), and K5
-(full-table closest hit), K6 (tile-sweep closest hit) and K7
+K1's and K2's plain versions, whose functions they compute), and K1, K2,
+K5 (full-table closest hit), K6 (tile-sweep closest hit) and K7
 (compact-table any hit) on the bench scene (19 treelets) and on the
 glass box with a subdiv-6 sphere (923 treelets), where K5 also holds to
-K1, K6's t to K1's and K7 to K2.  Every timed kernel call is printed
+K1, K6's t to K1's and K7 to K2.  K1 and K2 also run edge inputs: one
+ray, a ragged batch, all lanes dead, a table of one treelet and one of
+2,048 with a full and many empty treelets.  Every timed kernel call is printed
 beside its bound (`trace_bound`: the FP32 operations and bytes that its
 inputs need, over the card's peak rates) and its share of that bound.
 Four paths are driven through `render_chunk` (256x256, rr_depth 8, 2
 samples per batch, seed 7, 16 spp):
 
   * the bench configuration: the procedural glass Cornell box (19
-    treelets), traced by K1 (closest hit) and K2 (any hit);
+    treelets), traced by K1 (closest hit) and K2 (any hit), and held to
+    the same render through their plain versions;
   * the same with K5 and K7 in place of K1 and K2, and with K6 in place
     of K1 (the routes swapped with mock.patch), each held to the K1/K2
     render;
@@ -344,10 +347,23 @@ def ptxas_report(log):
     return rep
 
 
+# Registers a thread of K1-K4 may take: their launch bounds ask for two
+# blocks of 384 threads on an SM of 65,536 registers.
+REGISTER_BUDGET = 65_536 // (2 * 384)
+
+
 def kernel_resources(info, kernel):
-    """The ptxas report of every entry whose name holds `kernel`."""
-    return {name: r for name, r in info["ptxas"].items() if kernel in name} \
-        or "not reported: the library was built by an earlier process"
+    """The ptxas report of every entry whose name holds `kernel` (one of
+    K1-K4), with what exceeds the launch bounds' budget or spills said
+    outright."""
+    rep = {name: r for name, r in info["ptxas"].items() if kernel in name}
+    if not rep:
+        return "not reported: the library was built by an earlier process"
+    over = [n for n, r in rep.items()
+            if r.get("registers", 0) > REGISTER_BUDGET
+            or r.get("spill_store_bytes") or r.get("spill_load_bytes")]
+    return {"entries": rep, "register_budget": REGISTER_BUDGET,
+            "over_budget_or_spilling": sorted(over)}
 
 
 def phase_device():
@@ -371,74 +387,192 @@ def phase_device():
     return info
 
 
-def phase_k1(scene, rays):
+def phase_k1(tables, info):
+    """K1 against its plain version, bit for bit, on each table
+    (name, treelet table, (compacted rays, raw rays)) at the slice's
+    closest-hit shapes; compaction's own time on the bench table."""
     from bpt_tpu_torch.ops.compaction import compact_rays
     from bpt_tpu_torch.accel.api import scene_bounds
     from bpt_tpu_torch.ops.trace_closest import closest_hit, \
         closest_hit_plain
 
     t0 = time.perf_counter()
-    tg = scene.treelets
-    compacted, raw_rays = rays
-    out = {"phase": "k1_closest_hit"}
+    out = {"phase": "k1_closest_hit", "nvidia_smi": info["nvidia_smi"],
+           "ptxas": kernel_resources(info, "closest_hit_kernel")}
     timing = None
-    for name, (o, d, mn, mx) in compacted.items():
-        got = closest_hit(tg, o, d, mn, mx)
-        ref = closest_hit_plain(tg, o, d, mn, mx)
-        torch.cuda.synchronize()
-        rep = closest_report(got, ref)
-        k_ms = cuda_ms(lambda: closest_hit(tg, o, d, mn, mx))
-        p_ms = cuda_ms(lambda: closest_hit_plain(tg, o, d, mn, mx), reps=2)
-        cmp_ms = cuda_ms(lambda: compact_rays(*raw_rays[name],
-                                              bounds=scene_bounds(tg),
-                                              kind="ray"))
-        raw = [x.contiguous() for x in raw_rays[name]]
-        raw_ms = cuda_ms(lambda: closest_hit(tg, *raw))
-        out[name] = with_bound(
-            {"lanes": o.shape[0], "live": int((mx >= mn).sum()),
-             "hits": int((ref[1] >= 0).sum()), **rep, "ms": k_ms,
-             "plain_ms": p_ms, "compact_ms": cmp_ms,
-             "ms_uncompacted": raw_ms},
-            trace_bound(tg, (o, d, mn, mx), "closest", ref))
-        if rep["tri_mismatch"] or any(rep["t_u_v_bit_mismatch"]):
-            emit(out, t0)
-            raise AssertionError(f"K1 disagrees with its plain version on "
-                                 f"the {name} batch")
-        if name == "walk":
-            timing = out[name]
+    failed = []
+    for tname, tg, (compacted, raw_rays) in tables:
+        for name, (o, d, mn, mx) in compacted.items():
+            got = closest_hit(tg, o, d, mn, mx)
+            ref = closest_hit_plain(tg, o, d, mn, mx)
+            torch.cuda.synchronize()
+            rep = closest_report(got, ref)
+            res = {"n_treelets": tg.block.shape[0], "lanes": o.shape[0],
+                   "live": int((mx >= mn).sum()),
+                   "hits": int((ref[1] >= 0).sum()), **rep,
+                   "ms": cuda_ms(lambda: closest_hit(tg, o, d, mn, mx)),
+                   "plain_ms": cuda_ms(
+                       lambda: closest_hit_plain(tg, o, d, mn, mx), reps=1)}
+            if tname == "bench":
+                res["compact_ms"] = cuda_ms(lambda: compact_rays(
+                    *raw_rays[name], bounds=scene_bounds(tg), kind="ray"))
+                raw = [x.contiguous() for x in raw_rays[name]]
+                res["ms_uncompacted"] = cuda_ms(lambda: closest_hit(tg, *raw))
+            key = name if tname == "bench" else f"{tname}_{name}"
+            out[key] = with_bound(res, trace_bound(tg, (o, d, mn, mx),
+                                                   "closest", ref))
+            if rep["tri_mismatch"] or any(rep["t_u_v_bit_mismatch"]):
+                failed.append(key)
+            if key == "walk":
+                timing = out[key]
     emit(out, t0)
+    if failed:
+        raise AssertionError(f"K1 disagrees with its plain version on "
+                             f"{failed}")
     return timing
 
 
-def phase_k2(scene, segs):
+def phase_k2(tables, info):
+    """K2 against its plain version, flag for flag, on each table (name,
+    treelet table, (raw segments, compacted segments)) at the slice's
+    any-hit shape."""
     from bpt_tpu_torch.accel.api import scene_bounds
     from bpt_tpu_torch.ops.compaction import compact_rays
     from bpt_tpu_torch.ops.trace_any import any_hit, any_hit_plain
 
     t0 = time.perf_counter()
-    tg = scene.treelets_any
-    raw_segs, (o, d, mn, mx) = segs
-    got = any_hit(tg, o, d, mn, mx)
-    ref = any_hit_plain(tg, o, d, mn, mx)
-    torch.cuda.synchronize()
-    bad = int((got != ref).sum())
-    # The flags as 0/1 integers: max |kernel - plain| is 0 or 1.
-    flag_err = float((got.int() - ref.int()).abs().max())
-    k_ms = cuda_ms(lambda: any_hit(tg, o, d, mn, mx))
-    p_ms = cuda_ms(lambda: any_hit_plain(tg, o, d, mn, mx), reps=2)
-    cmp_ms = cuda_ms(lambda: compact_rays(*raw_segs, bounds=scene_bounds(tg)))
-    raw_ms = cuda_ms(lambda: any_hit(tg, *raw_segs))
-    out = with_bound(
-        {"phase": "k2_any_hit", "lanes": o.shape[0],
-         "live": int((mx >= mn).sum()), "occluded": int(ref.sum()),
-         "flag_mismatch": bad, "ms": k_ms, "plain_ms": p_ms,
-         "compact_ms": cmp_ms, "ms_uncompacted": raw_ms,
-         "max_abs_err": flag_err},
-        trace_bound(tg, (o, d, mn, mx), "any", ref))
+    out = {"phase": "k2_any_hit", "nvidia_smi": info["nvidia_smi"],
+           "ptxas": kernel_resources(info, "any_hit_kernel")}
+    failed = []
+    for tname, tg, (raw_segs, (o, d, mn, mx)) in tables:
+        got = any_hit(tg, o, d, mn, mx)
+        ref = any_hit_plain(tg, o, d, mn, mx)
+        torch.cuda.synchronize()
+        res = {"n_treelets": tg.block.shape[0], "lanes": o.shape[0],
+               "live": int((mx >= mn).sum()), "occluded": int(ref.sum()),
+               "flag_mismatch": int((got != ref).sum()),
+               # The flags as 0/1 integers: max |kernel - plain| is 0 or 1.
+               "max_abs_err": float((got.int() - ref.int()).abs().max()),
+               "ms": cuda_ms(lambda: any_hit(tg, o, d, mn, mx)),
+               "plain_ms": cuda_ms(lambda: any_hit_plain(tg, o, d, mn, mx),
+                                   reps=1)}
+        if tname == "bench":
+            res["compact_ms"] = cuda_ms(lambda: compact_rays(
+                *raw_segs, bounds=scene_bounds(tg)))
+            res["ms_uncompacted"] = cuda_ms(lambda: any_hit(tg, *raw_segs))
+        out[tname] = with_bound(res, trace_bound(tg, (o, d, mn, mx), "any",
+                                                 ref))
+        if res["flag_mismatch"]:
+            failed.append(tname)
     emit(out, t0)
-    if bad:
-        raise AssertionError("K2 disagrees with its plain version")
-    return out
+    if failed:
+        raise AssertionError(f"K2 disagrees with its plain version on "
+                             f"{failed}")
+    return out["bench"]
+
+
+def _edge_rays(n, seed, device, segment, live_frac=0.6):
+    """n rays from inside the box in random directions, `live_frac` of
+    them live; finite windows with `segment`."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    lo = torch.tensor([-0.95, 0.05, -0.95], device=device)
+    hi = torch.tensor([0.95, 1.95, 0.95], device=device)
+    o = lo + (hi - lo) * _uniform(gen, (n, 3), device)
+    d = _random_dirs(gen, n, device)
+    far = (_uniform(gen, n, device) * 3.0 if segment
+           else torch.full((n,), float("inf"), device=device))
+    live = _uniform(gen, n, device) < live_frac
+    return (o, d, torch.full((n,), 1e-8, device=device),
+            torch.where(live, far, torch.full_like(far, -1.0)))
+
+
+def edge_tables(tg, max_treelets):
+    """Tables at the edges of what K1 and K2 take, cut from the treelet
+    table `tg`: one treelet; and `max_treelets` of them, the first two
+    merged into one of K full slots (the second one's triangles repeated
+    as far as needed), the rest of `tg` behind it, then treelets that
+    hold no triangle in boxes inside the scene."""
+    nt, _, k = tg.block.shape
+    fields = type(tg)
+    one = fields(*(x[5:6].contiguous() for x in tg))
+    filled = (tg.block != 0).any(dim=1)  # (NT, K)
+    n0 = int(filled[0].sum())
+    take = torch.nonzero(filled[1]).squeeze(1)
+    take = take.repeat(-(-(k - n0) // take.numel()))[:k - n0]
+    full_block = torch.cat([tg.block[0, :, :n0], tg.block[1][:, take]], dim=1)
+    full_index = torch.cat([tg.tri_index[0, :n0], tg.tri_index[1, take]])
+    n_empty = max_treelets - (nt - 1)
+    gen = torch.Generator(device=tg.block.device).manual_seed(SEED + 2)
+    lo = torch.amin(tg.bmin, dim=0)
+    size = torch.amax(tg.bmax, dim=0) - lo
+    corner = lo + size * 0.8 * _uniform(gen, (n_empty, 3), tg.block.device)
+    pad = int(tg.tri_index.max())
+    limit = fields(
+        bmin=torch.cat([torch.minimum(tg.bmin[0], tg.bmin[1])[None],
+                        tg.bmin[2:], corner]).contiguous(),
+        bmax=torch.cat([torch.maximum(tg.bmax[0], tg.bmax[1])[None],
+                        tg.bmax[2:], corner + 0.2 * size]).contiguous(),
+        tri_index=torch.cat([full_index[None], tg.tri_index[2:],
+                             torch.full((n_empty, k), pad, dtype=torch.int32,
+                                        device=tg.block.device)]).contiguous(),
+        block=torch.cat([full_block[None], tg.block[2:],
+                         tg.block.new_zeros((n_empty, 9, k))]).contiguous())
+    return {"one_treelet": one, f"limit_{max_treelets}": limit}
+
+
+def phase_k12_edges(scene, device):
+    """K1 and K2 against their plain versions on edge inputs: one ray, a
+    batch that is no multiple of the block, all lanes dead, a table of one
+    treelet, and the largest table the kernels take (2,048 treelets, one
+    with all K slots filled, most with none, its triangle rows read from
+    global memory where the bench table's sit in shared memory)."""
+    from bpt_tpu_torch.accel.treelets import packed_triangles, \
+        triangle_counts
+    from bpt_tpu_torch.ops.intersect import MAX_TREELETS
+    from bpt_tpu_torch.ops.trace_any import any_hit, any_hit_plain
+    from bpt_tpu_torch.ops.trace_closest import closest_hit, \
+        closest_hit_plain
+
+    t0 = time.perf_counter()
+    tg = scene.treelets
+    tables = {"bench": tg, **edge_tables(tg, MAX_TREELETS)}
+    out = {"phase": "k1_k2_edges", "tables": {}}
+    for name, t in tables.items():
+        counts = triangle_counts(t)
+        out["tables"][name] = {
+            "n_treelets": t.block.shape[0],
+            "packed_rows": packed_triangles(t)[0].shape[0],
+            "count_min": int(counts.min()), "count_max": int(counts.max())}
+    cases = [("bench", 1, 0.6), ("bench", 1000, 0.6), ("bench", 5000, 0.0)]
+    cases += [(name, 50_000, 0.6) for name in tables if name != "bench"]
+    failed = []
+    for i, (name, n, live_frac) in enumerate(cases):
+        t = tables[name]
+        res = {}
+        rays = _edge_rays(n, SEED + 10 + i, device, False, live_frac)
+        rep = closest_report(closest_hit(t, *rays),
+                             closest_hit_plain(t, *rays))
+        res["k1"] = {"hits": int((closest_hit_plain(t, *rays)[1] >= 0).sum()),
+                     "tri_mismatch": rep["tri_mismatch"],
+                     "t_u_v_bit_mismatch": rep["t_u_v_bit_mismatch"]}
+        segs = _edge_rays(n, SEED + 30 + i, device, True, live_frac)
+        ref = any_hit_plain(t, *segs)
+        res["k2"] = {"occluded": int(ref.sum()),
+                     "flag_mismatch": int((any_hit(t, *segs) != ref).sum())}
+        out[f"{name}_b{n}_live{live_frac}"] = res
+        if (rep["tri_mismatch"] or any(rep["t_u_v_bit_mismatch"])
+                or res["k2"]["flag_mismatch"]):
+            failed.append((name, n, live_frac))
+    torch.cuda.synchronize()
+    emit(out, t0)
+    limit = out["tables"][f"limit_{MAX_TREELETS}"]
+    if (limit["n_treelets"], limit["count_min"], limit["count_max"]) \
+            != (MAX_TREELETS, 0, tg.block.shape[2]):
+        raise AssertionError(f"the edge table is not the one described: "
+                             f"{limit}")
+    if failed:
+        raise AssertionError(f"K1 or K2 disagrees with its plain version "
+                             f"on edge inputs {failed}")
 
 
 def phase_large_scene(device):
@@ -781,6 +915,8 @@ def phase_slice(scene, cam, device, smi):
     from bpt_tpu_torch.accel import api
     from bpt_tpu_torch.core import rng
     from bpt_tpu_torch.integrators.bdpt import BDPTConfig, render_chunk
+    from bpt_tpu_torch.ops import trace_any as ta
+    from bpt_tpu_torch.ops import trace_closest as tc
 
     t0 = time.perf_counter()
     cfg = BDPTConfig(BENCH["width"], BENCH["height"], spp=BENCH["spp"],
@@ -811,7 +947,7 @@ def phase_slice(scene, cam, device, smi):
     # harness; results are unchanged because dead lanes miss in the
     # kernels either way).
     walls, walls_nc = [wall], []
-    for swapped in (True, False, True):
+    for swapped in (True, False):
         tw = time.perf_counter()
         if swapped:
             with mock.patch.object(api, "compact_rays", _identity_layout):
@@ -821,6 +957,16 @@ def phase_slice(scene, cam, device, smi):
             chunk()
             walls.append(time.perf_counter() - tw)
     wall_med = statistics.median(walls)
+
+    # The same chunk through the plain versions of K1 and K2, swapped in
+    # for this comparison only.
+    tw = time.perf_counter()
+    with mock.patch.multiple(api, closest_hit=tc.closest_hit_plain,
+                             any_hit=ta.any_hit_plain):
+        fb_p, nrays_p = chunk()
+    vs_plain = {**image_agreement(fb, nrays, fb_p, nrays_p),
+                "plain_chunk_s": time.perf_counter() - tw}
+    del fb_p
 
     out = {"phase": "slice", "config": "procedural glass cbox 256x256 "
            "16spp rr8 sb2 seed7", "nvidia_smi": smi, "warmup_s": warm_s,
@@ -833,12 +979,22 @@ def phase_slice(scene, cam, device, smi):
            "wall_s_without_compaction": statistics.median(walls_nc),
            "wall_s_without_compaction_runs": walls_nc,
            "nrays_without_compaction": nrays_nc,
-           "image_mean_without_compaction": float(fb_nc.mean())}
+           "image_mean_without_compaction": float(fb_nc.mean()),
+           "vs_plain_versions": vs_plain}
     batches = cfg.spp // BENCH["sb"]
     out.update(_profile_batch(scene, cam_consts, cfg, key,
                               wall_med / batches))
     emit(out, t0)
     check_render(out, used=("k1_closest_hit", "k2_any_hit"))
+    # Per batch: the primary trace and seven walk depths through K1, the
+    # one connect any-hit through K2.
+    if (launches["k1_closest_hit"], launches["k2_any_hit"]) \
+            != (8 * batches, batches):
+        raise AssertionError(f"slice launched {launches} in {batches} "
+                             f"batches")
+    if not agrees(vs_plain):
+        raise AssertionError(f"the K1/K2 render and the render through "
+                             f"their plain versions disagree: {vs_plain}")
     return launches, fb, out
 
 
@@ -880,31 +1036,18 @@ def phase_slice_routed(phase, scene, cam, device, smi, routes, counts, base,
         wall = time.perf_counter() - tw
         launches, plain_calls = read_counts()
         peak = torch.cuda.max_memory_allocated()
-        walls = [wall]
-        tw = time.perf_counter()
-        chunk()
-        walls.append(time.perf_counter() - tw)
-        wall_med = statistics.median(walls)
         prof = _profile_batch(scene, cam_consts, cfg, key,
-                              wall_med / (cfg.spp // BENCH["sb"]))
+                              wall / (cfg.spp // BENCH["sb"]))
     base_fb, base_out = base
-    a, b = fb.double(), base_fb.double()
-    frac_off = float(((a - b).abs() / torch.clamp_min(b.abs(), 1e-3)
-                      > 1e-3).double().mean())
-    mean_rel = abs(float(a.mean()) - float(b.mean())) / max(float(b.mean()),
-                                                           1e-9)
-    nr_rel = abs(nrays - base_out["nrays"]) / max(base_out["nrays"], 1)
+    v = image_agreement(fb, nrays, base_fb, base_out["nrays"])
     out = {"phase": phase, "config": base_out["config"],
            "routes": {k: v.__name__ for k, v in routes.items()},
-           "nvidia_smi": smi, "warmup_s": warm_s, "wall_s": wall_med,
-           "wall_s_runs": walls, "nrays": nrays,
-           "rays_per_s": nrays / wall_med, "peak_mem_bytes": peak,
+           "nvidia_smi": smi, "warmup_s": warm_s, "wall_s": wall,
+           "nrays": nrays, "rays_per_s": nrays / wall, "peak_mem_bytes": peak,
            "launches": launches, "plain_calls_on_cuda": plain_calls,
            "image_mean": float(fb.mean()),
            "finite": bool(torch.isfinite(fb).all()),
-           "vs_k1_k2_slice": {"pixels_off_frac": frac_off,
-                              "mean_rel": mean_rel, "nrays_rel": nr_rel,
-                              "wall_s": base_out["wall_s"],
+           "vs_k1_k2_slice": {**v, "wall_s": base_out["wall_s"],
                               "rays_per_s": base_out["rays_per_s"],
                               "peak_mem_bytes": base_out["peak_mem_bytes"]},
            **prof}
@@ -913,9 +1056,8 @@ def phase_slice_routed(phase, scene, cam, device, smi, routes, counts, base,
     if any(launches[k] != base_out["launches"][b] for k, b in counts.items()):
         raise AssertionError(f"{phase} launched {launches}, the K1/K2 "
                              f"slice {base_out['launches']}")
-    v = out["vs_k1_k2_slice"]
-    if not (frac_off == 0.0 and nr_rel == 0.0 if exact
-            else frac_off <= 0.02 and mean_rel <= 1e-3 and nr_rel <= 1e-3):
+    if not (v["pixels_off_frac"] == 0.0 and v["nrays_rel"] == 0.0 if exact
+            else agrees(v)):
         raise AssertionError(f"{phase} disagrees with the K1/K2 slice: {v}")
     return launches
 
@@ -998,6 +1140,25 @@ def check_render(out, used):
         raise AssertionError(f"black image in {out['phase']}")
 
 
+def image_agreement(a, na, b, nb):
+    """The aggregates two renders (image, nrays) are compared on: the
+    share of pixels off by more than 1e-3 relative, the relative
+    difference of the image means and of the ray counts."""
+    a, b = a.double(), b.double()
+    denom = torch.clamp_min(b.abs(), 1e-3)
+    return {"pixels_off_frac": float(((a - b).abs() / denom > 1e-3)
+                                     .double().mean()),
+            "mean_rel": abs(float(a.mean()) - float(b.mean()))
+            / max(float(b.mean()), 1e-9),
+            "nrays": [na, nb], "nrays_rel": abs(na - nb) / max(nb, 1)}
+
+
+def agrees(v):
+    """The aggregate gate of a kernel render against a plain one."""
+    return (v["pixels_off_frac"] <= 0.02 and v["mean_rel"] <= 1e-3
+            and v["nrays_rel"] <= 1e-3)
+
+
 def compare_paths(name, scene, cam, cfg, routes):
     """One render through the kernels and one through the plain versions
     (swapped in for this comparison only), gated on aggregates."""
@@ -1010,21 +1171,12 @@ def compare_paths(name, scene, cam, cfg, routes):
     a, na = render_image(scene, cam, cfg, seed=SEED)
     with mock.patch.multiple(api, **routes):
         b, nb = render_image(scene, cam, cfg, seed=SEED)
-    a, b = a.double(), b.double()
-    denom = torch.clamp_min(b.abs(), 1e-3)
-    frac_off = float(((a - b).abs() / denom > 1e-3).double().mean())
-    mean_rel = abs(float(a.mean()) - float(b.mean())) / max(float(b.mean()),
-                                                           1e-9)
-    nr_rel = abs(na - nb) / max(nb, 1)
     out = {"phase": "kernel_vs_plain_render", "case": name,
            "config": f"{cfg.width}x{cfg.height} {cfg.spp}spp "
-                     f"rr{cfg.rr_depth}",
-           "pixels_off_frac": frac_off, "mean_rel": mean_rel,
-           "nrays": [na, nb], "nrays_rel": nr_rel,
+                     f"rr{cfg.rr_depth}", **image_agreement(a, na, b, nb),
            "finite": bool(torch.isfinite(a).all())}
     emit(out, t0)
-    if not (frac_off <= 0.02 and mean_rel <= 1e-3 and nr_rel <= 1e-3
-            and out["finite"]):
+    if not (agrees(out) and out["finite"]):
         raise AssertionError(f"kernel path and plain path disagree ({name})")
 
 
@@ -1067,20 +1219,25 @@ def main():
     info = phase_device()
     smi = info["nvidia_smi"]
     scene, _, cam = bench_scene(device)
+    scene6 = phase_subdiv6(device)
     l = BENCH["rr_depth"] - 1
     n_connect = l * (l + 2) * BENCH["width"] * BENCH["height"] * BENCH["sb"]
     bench_rays = compacted_k1_inputs(scene, cam, device)
     bench_segs = k2_inputs(scene, device, n_connect)
-    k1 = phase_k1(scene, bench_rays)
-    k2 = phase_k2(scene, bench_segs)
+    rays6 = compacted_k1_inputs(scene6, cam, device)
+    segs6 = k2_inputs(scene6, device, n_connect)
+    k1 = phase_k1((("bench", scene.treelets, bench_rays),
+                   ("subdiv6", scene6.treelets, rays6)), info)
+    k2 = phase_k2((("bench", scene.treelets_any, bench_segs),
+                   ("subdiv6", scene6.treelets_any, segs6)), info)
+    phase_k12_edges(scene, device)
+    rays6, segs6 = rays6[0], segs6[1]
     large, cfg_t = phase_large_scene(device)
     large_rays = compacted_k1_inputs(large, cfg_t.camera, device)
     large_segs = k2_inputs(large, device, n_connect)
     k3 = phase_k3(large, large_rays, scene, bench_rays, info)
     k4 = phase_k4(large, large_segs, scene, bench_segs, info)
     del large_rays, large_segs
-    scene6 = phase_subdiv6(device)
-    rays6 = compacted_k1_inputs(scene6, cam, device)[0]
     closest_tables = (("bench", scene.treelets, bench_rays[0]),
                       ("subdiv6", scene6.treelets, rays6))
     k5 = phase_closest_kernel("k5_closest_hit_full", tc.closest_hit_full,
@@ -1090,7 +1247,6 @@ def main():
                               tc.closest_hit_sweep_plain, closest_tables,
                               exact_vs_k1=False)
     del rays6, closest_tables
-    segs6 = k2_inputs(scene6, device, n_connect)[1]
     k7 = phase_k7((("bench", scene.treelets_any, bench_segs[1]),
                    ("subdiv6", scene6.treelets_any, segs6)))
     # The renders' peak memory counts the scenes and the render only.

@@ -67,7 +67,7 @@ def _walks(w=16, rr=4):
     b = w * w
     pix = np.arange(b, dtype=np.int32)
     jk = jrng.lane_keys(jax.random.key(5), jnp.asarray(pix))
-    tk = trng.lane_keys(trng.key(5), torch.from_numpy(pix))
+    tk = trng.lane_keys(trng.key(5, device="cpu"), torch.from_numpy(pix))
     jcc = jc.device_constants()
     tcc = tc.device_constants("cpu")
     jitter = jrng.uniform2(jrng.lane_fold(jk, jrng.PIXEL_JITTER))

@@ -1,7 +1,8 @@
 """The CUDA kernels K1-K7 against their plain PyTorch versions on the
 card: bit-equal hits and equal occlusion flags; K3-K7 also against K1
-and K2.  These need an NVIDIA GPU with nvcc and skip without one; run
-them on the card with
+and K2; K1 and K2 also on the 923-treelet table, on the largest table
+they take and on edge batches.  These need an NVIDIA GPU with nvcc and
+skip without one; run them on the card with
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 """
@@ -243,7 +244,75 @@ def test_unstreamed_kernels_refuse_large_tables(cuda_subdiv5):
         assert fn.launches == launches
 
 
-TABLES = ["cuda_scene", "cuda_subdiv5"]
+@pytest.fixture(scope="module")
+def cuda_subdiv6():
+    """The glass box at subdiv 6 (923 treelets): its packed triangle rows
+    (3.9 MB) do not fit in shared memory, where the bench table's do."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from bpt_tpu_torch.scene.procedural import cornell_box_scene
+
+    scene, _, _ = cornell_box_scene(16, 16, device="cuda",
+                                    right_object="glass_sphere",
+                                    sphere_subdiv=6)
+    assert scene.treelets.block.shape[0] == 923
+    return scene
+
+
+TABLES = ["cuda_scene", "cuda_subdiv5", "cuda_subdiv6"]
+
+
+def _flat_kernels_equal_plain(tg, tg_any, n, seed, live_frac=0.6):
+    """K1 bit-equal to its plain version and K2's flags equal to its
+    plain version's on n rays and n segments."""
+    from bpt_tpu_torch.ops.trace_any import any_hit, any_hit_plain
+    from bpt_tpu_torch.ops.trace_closest import closest_hit, \
+        closest_hit_plain
+
+    args = _rays(n, seed=seed)
+    seg = _rays(n, seed=seed + 1, segment=True)
+    if live_frac == 0.0:
+        args = args[:3] + (torch.full_like(args[3], -1.0),)
+        seg = seg[:3] + (torch.full_like(seg[3], -1.0),)
+    got = closest_hit(tg, *args)
+    occ = any_hit(tg_any, *seg)
+    torch.cuda.synchronize()
+    _bit_equal_closest(got, closest_hit_plain(tg, *args))
+    assert torch.equal(occ, any_hit_plain(tg_any, *seg))
+    return got, occ
+
+
+@pytest.mark.parametrize("n", [1, 1000, 65_536])
+def test_flat_kernels_on_the_923_treelet_table(cuda_subdiv6, n):
+    """K1 and K2 with their triangle rows read from global memory."""
+    got, occ = _flat_kernels_equal_plain(cuda_subdiv6.treelets,
+                                         cuda_subdiv6.treelets_any, n, 40 + n)
+    if n > 1:
+        assert int((got[1] >= 0).sum()) > 0 and 0 < int(occ.sum()) < n
+
+
+def test_flat_kernels_with_every_lane_dead(cuda_scene):
+    got, occ = _flat_kernels_equal_plain(cuda_scene.treelets,
+                                         cuda_scene.treelets_any, 5000, 50,
+                                         live_frac=0.0)
+    assert int((got[1] >= 0).sum()) == 0 and int(occ.sum()) == 0
+
+
+@pytest.mark.parametrize("table", ["one_treelet", "limit_2048"])
+def test_flat_kernels_on_edge_tables(cuda_scene, table):
+    """A table of one treelet, and the largest table K1 and K2 take:
+    2,048 treelets, one with all 128 slots filled, most with none."""
+    import chip_smoke
+    from bpt_tpu_torch.accel.treelets import triangle_counts
+    from bpt_tpu_torch.ops.intersect import MAX_TREELETS
+
+    tg = chip_smoke.edge_tables(cuda_scene.treelets, MAX_TREELETS)[table]
+    if table != "one_treelet":
+        counts = triangle_counts(tg)
+        assert tg.block.shape[0] == MAX_TREELETS
+        assert (int(counts.min()), int(counts.max())) == (0, 128)
+    got, occ = _flat_kernels_equal_plain(tg, tg, 50_000, 60)
+    assert int((got[1] >= 0).sum()) > 0 and int(occ.sum()) > 0
 
 
 def _bit_equal_closest(got, ref):

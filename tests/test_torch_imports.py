@@ -1,5 +1,5 @@
 """The port stands alone: no module of bpt_tpu_torch/ and nothing in
-chip_smoke.py imports the JAX package bpt_tpu, directly or through
+chip_smoke.py or probes/ imports the JAX package bpt_tpu, directly or through
 another module, and the port's copies of the reference's numpy host
 modules (BVH builder, treelet cut, OBJ parser) give arrays equal to the
 reference's."""
@@ -27,7 +27,7 @@ from bpt_tpu_torch.scene.scene import TREELET_K
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "bpt_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py"] + sorted((REPO / "probes").glob("*.py"))
 
 
 def _imports_jax_package(path: Path):

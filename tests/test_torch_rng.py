@@ -33,14 +33,14 @@ def test_jax_prng_is_the_one_the_port_assumes():
 @pytest.mark.parametrize("seed", [0, 1, 7, 123456789, 2**31 - 1])
 def test_key(seed):
     np.testing.assert_array_equal(
-        _bits(jax.random.key(seed)), trng.key(seed).numpy())
+        _bits(jax.random.key(seed)), trng.key(seed, device="cpu").numpy())
 
 
 @pytest.mark.parametrize("seed", [1, 7])
 def test_lane_keys(seed):
     ids = _lane_ids(seed)
     j = jrng.lane_keys(jax.random.key(seed), jnp.asarray(ids))
-    t = trng.lane_keys(trng.key(seed), torch.from_numpy(ids))
+    t = trng.lane_keys(trng.key(seed, device="cpu"), torch.from_numpy(ids))
     np.testing.assert_array_equal(_bits(j), t.numpy())
 
 
@@ -49,7 +49,8 @@ def test_lane_fold_and_uniforms(tag):
     ids = _lane_ids(3)
     jk = jrng.lane_fold(jrng.lane_keys(jax.random.key(7), jnp.asarray(ids)),
                         tag)
-    tk = trng.lane_fold(trng.lane_keys(trng.key(7), torch.from_numpy(ids)),
+    tk = trng.lane_fold(trng.lane_keys(trng.key(7, device="cpu"),
+                                       torch.from_numpy(ids)),
                         tag)
     np.testing.assert_array_equal(_bits(jk), tk.numpy())
     np.testing.assert_array_equal(np.asarray(jrng.uniform1(jk)),
@@ -65,7 +66,7 @@ def test_fold_in_with_traced_tags_per_lane():
         np.int32)
     jk = jrng.lane_keys(jax.random.key(11), jnp.asarray(ids))
     jf = jax.vmap(jax.random.fold_in)(jk, jnp.asarray(tags))
-    tk = trng.lane_keys(trng.key(11), torch.from_numpy(ids))
+    tk = trng.lane_keys(trng.key(11, device="cpu"), torch.from_numpy(ids))
     tf = trng.fold_in(tk, torch.from_numpy(tags))
     np.testing.assert_array_equal(_bits(jf), tf.numpy())
 
@@ -78,7 +79,7 @@ def test_render_chunk_key_layout():
     skeys = jax.vmap(lambda s: jax.random.fold_in(key, s))(sids)
     jl = jax.vmap(lambda sk: jrng.lane_keys(sk, jnp.asarray(pix)))(skeys)
     jl = jl.T.reshape((sb * pix.size,))
-    tkey = trng.key(7)
+    tkey = trng.key(7, device="cpu")
     tskeys = trng.fold_in(tkey[None, :], 3 + torch.arange(sb))
     tl = trng.fold_in(tskeys[:, None, :], torch.from_numpy(pix)[None, :])
     tl = tl.transpose(0, 1).reshape(sb * pix.size, 2)
@@ -86,6 +87,7 @@ def test_render_chunk_key_layout():
 
 
 def test_uniforms_lie_in_unit_interval():
-    u = trng.uniform2(trng.lane_keys(trng.key(0), torch.arange(N_LANES)))
+    u = trng.uniform2(trng.lane_keys(trng.key(0, device="cpu"),
+                                     torch.arange(N_LANES)))
     assert u.dtype == torch.float32
     assert bool((u >= 0).all()) and bool((u < 1).all())

@@ -189,7 +189,8 @@ def test_sample_emitter_position(scenes):
     ids = np.arange(N, dtype=np.int32)
     jk = jrng.lane_fold(jrng.lane_keys(jax.random.key(3), jnp.asarray(ids)),
                         jrng.NEE_WALK)
-    tk = trng.lane_fold(trng.lane_keys(trng.key(3), torch.from_numpy(ids)),
+    tk = trng.lane_fold(trng.lane_keys(trng.key(3, device="cpu"),
+                                       torch.from_numpy(ids)),
                         trng.NEE_WALK)
     je = jcommon.sample_emitter_position(js, jk)
     te = tcommon.sample_emitter_position(ts, tk)

@@ -54,7 +54,8 @@ def _jax(*arrays):
     return [jnp.asarray(a) for a in arrays]
 
 
-def _assert_closest_equal(jt, jtri, ju, jv, tt, ttri, tu, tv, live):
+def _assert_closest_equal(jt, jtri, ju, jv, tt, ttri, tu, tv, live,
+                          uv_atol=1e-5):
     """tri equal except on ties (the two candidates' t within 1e-6
     relative); t/u/v rtol 1e-6 where tri agrees.
 
@@ -64,7 +65,8 @@ def _assert_closest_equal(jt, jtri, ju, jv, tt, ttri, tu, tv, live):
     from the o - v0 products, so t gets atol 1e-7 (measured 1.08e-6
     relative at t = 0.045), and u, v get atol 1e-5: camera rays hitting
     small sphere triangles 3.3 units away (|det| ~ 1e-3) amplify a few
-    ulp of the numerator to 4e-6 (measured)."""
+    ulp of the numerator to 4e-6 (measured).  `uv_atol` is that atol, for
+    callers with smaller triangles."""
     same = ttri == jtri
     hit_both = np.isfinite(tt) & np.isfinite(jt)
     gap = np.abs(np.where(hit_both, tt, 0.0) - np.where(hit_both, jt, 0.0))
@@ -72,8 +74,8 @@ def _assert_closest_equal(jt, jtri, ju, jv, tt, ttri, tu, tv, live):
     assert np.all(same | ties), np.nonzero(~(same | ties))
     assert ties.sum() <= 2
     np.testing.assert_allclose(tt[same], jt[same], rtol=1e-6, atol=1e-7)
-    np.testing.assert_allclose(tu[same], ju[same], rtol=1e-6, atol=1e-5)
-    np.testing.assert_allclose(tv[same], jv[same], rtol=1e-6, atol=1e-5)
+    np.testing.assert_allclose(tu[same], ju[same], rtol=1e-6, atol=uv_atol)
+    np.testing.assert_allclose(tv[same], jv[same], rtol=1e-6, atol=uv_atol)
     assert np.all(ttri[~live] == -1) and np.all(np.isinf(tt[~live]))
     assert np.all(tu[~live] == 0) and np.all(tv[~live] == 0)
 
