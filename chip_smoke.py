@@ -28,9 +28,25 @@ samples per batch, seed 7, 16 spp):
     and read back through `load_toml` and `load_scene`, traced by the
     streamed kernels K3 and K4.
 
+Three more paths run K1 and K2:
+
+  * `slice_sb4`: the bench configuration at 4 samples a batch, whose
+    pair grid (49 x 262,144 lanes) goes through the chunked connect, held
+    to the 2-samples-a-batch render;
+  * `slice_rr`: BASELINE config #4's settings (512x512, Russian roulette
+    from depth 2, 12 bounces, one sample a batch: 13 K1 and 7 K2 launches
+    a sample) on the glass box written as a scene file, held to the same
+    samples through the plain versions;
+  * `modes`: BDPT, the path tracer and the light tracer on the
+    all-diffuse box over 6 seeds, their image means held to |z| < 4 where
+    they estimate the same image (with Russian roulette, and without it
+    on 15-step walks), and light_trace / path_trace renders of the glass
+    box held to renders through the plain versions.
+
 Each kernel's launch count is reset just before each path runs and read
-just after.  A small render through the kernels is compared with one
-through the plain versions on each scene.  One JSON line per phase, each
+just after; the kernels line sums them over the paths.  A small render
+through the kernels is compared with one through the plain versions on
+each scene.  One JSON line per phase, each
 with its `elapsed_s`; the second-to-last lines are the card's
 `nvidia-smi` name and power limit and the per-kernel summary; the last
 line is {"ok": true, "device": {...}}.  Any failed check raises, so the
@@ -55,6 +71,13 @@ BENCH = dict(width=256, height=256, spp=16, rr_depth=8, sb=2)
 SMALL = dict(width=64, height=64, spp=4, rr_depth=5)
 LARGE = dict(sphere_subdiv=7, n_triangles=327_704, n_treelets=3_656)
 SMALL_LARGE = dict(width=32, height=32, spp=2, rr_depth=4)
+# BASELINE config #4's settings (benchmarks/hardlight_512.py:54-55), the
+# first of the Russian-roulette path; 2 samples of one a batch.
+RR = dict(width=512, spp=2, rr_depth=2, max_bounces=12)
+# The cross-estimator check (tests/test_bdpt.py) on the card; deep_rr_depth:
+# the walks' depth without roulette at which truncation no longer shows.
+MODES = dict(width=64, spp=8, rr_depth=3, replicates=6, max_bounces=16,
+             deep_rr_depth=16)
 # The second table of K5-K7: more treelets than a candidate buffer (K5)
 # or a compaction round (K7) holds.
 SUBDIV6 = dict(sphere_subdiv=6, n_treelets=923)
@@ -823,25 +846,31 @@ _KERNEL_GROUPS = (("k3_closest_hit_stream", "closest_hit_stream_kernel"),
                   ("k7_any_hit_compact", "any_hit_compact_kernel"))
 
 
-def _profile_batch(scene, cam_consts, cfg, key, batch_wall_s):
-    """Device time by kernel over one sample batch (torch.profiler).  The
-    idle share is taken against `batch_wall_s`, the unprofiled wall of
-    one batch, because the profiler itself slows the host down; the
-    share against the profiled batch's wall is printed beside it."""
+def _profile_batch(scene, cam_consts, cfg, key, batch_wall_s,
+                   sb=BENCH["sb"]):
+    """Device time by kernel over one batch of `sb` samples
+    (torch.profiler).  The idle share is taken against `batch_wall_s`,
+    the unprofiled wall of one batch, because the profiler itself slows
+    the host down; the share against the profiled batch's wall is
+    printed beside it."""
     from torch.profiler import ProfilerActivity, profile
 
     from bpt_tpu_torch.integrators.bdpt import render_chunk
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # Device activity only: the busy time is read from kernel events
+    # alone; the profiler's own work after the batch is printed as
+    # `profile_processing_s`.
+    t_all = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        render_chunk(scene, cam_consts, cfg, key, BENCH["sb"],
-                     samples_per_batch=BENCH["sb"])
+        render_chunk(scene, cam_consts, cfg, key, sb, samples_per_batch=sb)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    processing_s = time.perf_counter() - t_all - wall
     groups = {g: 0.0 for g, _ in _KERNEL_GROUPS}
     groups.update(sort=0.0, other=0.0)
-    for ev in prof.key_averages():
+    for ev in events:
         us = ev.self_device_time_total
         if not us or ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -859,6 +888,7 @@ def _profile_batch(scene, cam_consts, cfg, key, batch_wall_s):
             "device_idle_share": max(0.0, 1.0 - busy / batch_wall_s),
             "profile_wall_s": wall,
             "device_idle_share_profiled": max(0.0, 1.0 - busy / wall),
+            "profile_processing_s": processing_s,
             "device_s_by_group": {k: v / 1e6 for k, v in groups.items()}}
 
 
@@ -1206,6 +1236,261 @@ def phase_paths(device, large, cam_large):
                        any_hit_stream=ta.any_hit_stream_plain))
 
 
+def _timed_chunk(scene, cam_consts, cfg, key, spp, sb, routes=None):
+    """One render_chunk of `spp` samples in batches of `sb`, kernel
+    launch counts reset just before and read just after, peak memory
+    reset before: (fb, nrays, wall_s, launches, plain_calls, peak)."""
+    from contextlib import nullcontext
+    from unittest import mock
+
+    from bpt_tpu_torch.accel import api
+    from bpt_tpu_torch.integrators.bdpt import render_chunk
+
+    with mock.patch.multiple(api, **routes) if routes else nullcontext():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        tw = time.perf_counter()
+        fb, nr = render_chunk(scene, cam_consts, cfg, key, spp,
+                              samples_per_batch=sb)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tw
+        launches, plain_calls = read_counts()
+    return (fb, int(nr), wall, launches, plain_calls,
+            torch.cuda.max_memory_allocated())
+
+
+def add_launches(total, launches):
+    for k, n in launches.items():
+        total[k] = total.get(k, 0) + n
+
+
+def phase_slice_rr(device, smi):
+    """BASELINE config #4's settings (benchmarks/hardlight_512.py:54-55):
+    512x512, rr_depth 2, Russian roulette, 12 bounces, one sample a batch
+    (B = 262,144, L = 12): the 144 x B pair grid goes in chunks of 2 eye
+    rows, 6 pair any-hit launches and one NEE + t=1 launch a sample.  The
+    reference's scene file is not in the repo, so the glass box stands in,
+    written by export_cornell_box and read back through load_toml and
+    load_scene."""
+    from bpt_tpu_torch.core import rng
+    from bpt_tpu_torch.integrators.bdpt import MEGA_MAX_LANES, BDPTConfig, \
+        render_chunk
+    from bpt_tpu_torch.ops import trace_any as ta
+    from bpt_tpu_torch.ops import trace_closest as tc
+    from bpt_tpu_torch.scene.export import export_cornell_box
+    from bpt_tpu_torch.scene.scene import load_scene
+    from bpt_tpu_torch.scene.toml_config import load_toml
+
+    t0 = time.perf_counter()
+    w = RR["width"]
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_t = load_toml(export_cornell_box(
+            tmp, width=w, height=w, spp=RR["spp"], rr_depth=RR["rr_depth"],
+            right_object="glass_sphere", sphere_subdiv=3))
+        scene, meta = load_scene(cfg_t.obj_file, device)
+    cfg = BDPTConfig(cfg_t.width, cfg_t.height, spp=RR["spp"],
+                     rr_depth=cfg_t.rr_depth, no_rr=False,
+                     max_bounces=RR["max_bounces"])
+    cam_consts = cfg_t.camera.device_constants(device)
+    key = rng.key(SEED, device)
+    l, b = cfg.n_steps, w * w
+    rows = max(1, min(l, MEGA_MAX_LANES // (l * b)))
+    n_chunks = -(-l // rows)
+
+    tw = time.perf_counter()
+    render_chunk(scene, cam_consts, cfg, key, 1)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - tw
+    fb, nrays, wall, launches, plain_calls, peak = _timed_chunk(
+        scene, cam_consts, cfg, key, cfg.spp, 1)
+    prof = _profile_batch(scene, cam_consts, cfg, key, wall / cfg.spp, sb=1)
+    tw = time.perf_counter()
+    fb_p, nrays_p = _timed_chunk(
+        scene, cam_consts, cfg, key, cfg.spp, 1,
+        dict(closest_hit=tc.closest_hit_plain, any_hit=ta.any_hit_plain))[:2]
+    vs_plain = {**image_agreement(fb, nrays, fb_p, nrays_p),
+                "plain_chunk_s": time.perf_counter() - tw}
+    del fb_p
+    per_sample = {k: n / cfg.spp for k, n in launches.items() if n}
+    out = {"phase": "slice_rr",
+           "config": f"BASELINE #4 settings: {w}x{w} {cfg.spp}spp rr_depth "
+                     f"{cfg.rr_depth} RR max_bounces {cfg.max_bounces} sb1 "
+                     f"seed{SEED}; glass cbox (stand-in for the reference's "
+                     f"cbox_bdpt.toml) via export_cornell_box -> load_toml "
+                     f"-> load_scene",
+           "n_triangles": meta.n_triangles,
+           "n_treelets": scene.treelets.block.shape[0],
+           "lanes": b, "walk_steps": l,
+           "pair_lanes": l * l * b, "budget": MEGA_MAX_LANES,
+           "rows_per_chunk": rows, "pair_chunks": n_chunks,
+           "nvidia_smi": smi, "warmup_s": warm_s, "wall_s": wall,
+           "nrays": nrays, "rays_per_s": nrays / wall, "peak_mem_bytes": peak,
+           "launches": launches, "launches_per_sample": per_sample,
+           "plain_calls_on_cuda": plain_calls,
+           "image_mean": float(fb.mean()),
+           "finite": bool(torch.isfinite(fb).all()),
+           "vs_plain_versions": vs_plain, **prof}
+    emit(out, t0)
+    check_render(out, used=("k1_closest_hit", "k2_any_hit"))
+    if (launches["k1_closest_hit"], launches["k2_any_hit"]) != (
+            (l + 1) * cfg.spp, (n_chunks + 1) * cfg.spp):
+        raise AssertionError(f"slice_rr launched {launches} in {cfg.spp} "
+                             f"samples")
+    if not agrees(vs_plain):
+        raise AssertionError(f"the RR render through K1/K2 and through "
+                             f"their plain versions disagree: {vs_plain}")
+    return launches
+
+
+def phase_slice_sb4(scene, cam, device, smi, base):
+    """The bench configuration at 4 samples a batch: B = 262,144 lanes,
+    a 49 x B pair grid above the budget, so the pairs go in two chunks
+    (4 and 3 eye rows); held to the K1/K2 slice (2 samples a batch, the
+    unchunked connect) `base` = (its image, its phase line): the batch
+    size does not change the estimate."""
+    from bpt_tpu_torch.core import rng
+    from bpt_tpu_torch.integrators.bdpt import MEGA_MAX_LANES, BDPTConfig
+
+    t0 = time.perf_counter()
+    sb = 4
+    cfg = BDPTConfig(BENCH["width"], BENCH["height"], spp=BENCH["spp"],
+                     rr_depth=BENCH["rr_depth"])
+    l, b = cfg.n_steps, sb * cfg.width * cfg.height
+    rows = max(1, min(l, MEGA_MAX_LANES // (l * b)))
+    n_chunks = -(-l // rows) if l * l * b > MEGA_MAX_LANES else 0
+    cam_consts = cam.device_constants(device)
+    key = rng.key(SEED, device)
+    fb, nrays, wall, launches, plain_calls, peak = _timed_chunk(
+        scene, cam_consts, cfg, key, cfg.spp, sb)
+    base_fb, base_out = base
+    v = image_agreement(fb, nrays, base_fb, base_out["nrays"])
+    batches = cfg.spp // sb
+    out = {"phase": "slice_sb4",
+           "config": f"procedural glass cbox {cfg.width}x{cfg.height} "
+                     f"{cfg.spp}spp rr{cfg.rr_depth} sb{sb} seed{SEED}",
+           "lanes": b, "pair_lanes": l * l * b, "budget": MEGA_MAX_LANES,
+           "rows_per_chunk": rows, "pair_chunks": n_chunks,
+           "nvidia_smi": smi, "wall_s": wall, "nrays": nrays,
+           "rays_per_s": nrays / wall, "peak_mem_bytes": peak,
+           "launches": launches, "plain_calls_on_cuda": plain_calls,
+           "image_mean": float(fb.mean()),
+           "finite": bool(torch.isfinite(fb).all()),
+           "vs_sb2_slice": {**v, "wall_s": base_out["wall_s"],
+                            "rays_per_s": base_out["rays_per_s"],
+                            "peak_mem_bytes": base_out["peak_mem_bytes"]}}
+    emit(out, t0)
+    check_render(out, used=("k1_closest_hit", "k2_any_hit"))
+    # Per batch: the primary trace and a walk trace a depth through K1;
+    # one NEE + t=1 any-hit and one a pair chunk through K2 (2 chunks of
+    # 4 and 3 eye rows at 256x256).
+    if (launches["k1_closest_hit"], launches["k2_any_hit"]) != (
+            (l + 1) * batches, (1 + n_chunks) * batches):
+        raise AssertionError(f"slice_sb4 launched {launches} in {batches} "
+                             f"batches")
+    if not agrees(v):
+        raise AssertionError(f"4 samples a batch disagree with 2: {v}")
+    return launches
+
+
+def _z(a, b):
+    """|z| of the difference of two (mean, standard error) pairs."""
+    return abs(a[0] - b[0]) / (a[1] ** 2 + b[1] ** 2 + 1e-30) ** 0.5
+
+
+def phase_modes(device, smi):
+    """The cross-estimator check of tests/test_bdpt.py on the card: BDPT,
+    the path tracer and the light tracer on the all-diffuse box (64x64)
+    over MODES["replicates"] disjoint seeds, image means compared by z.
+
+    Without Russian roulette each walk stops after rr_depth - 1 steps.
+    The path and light tracers then see paths of up to rr_depth - 1
+    surface vertices; BDPT also connects eye and light walks into longer
+    ones, and at rr_depth - 1 vertices it lacks the s=0 technique (an
+    emitter hit one step past the walk) that its MIS weights count.  At
+    rr_depth 3 the three estimate different truncations: BDPT's mean is
+    printed, only the path and light tracers are gated.  At
+    MODES["deep_rr_depth"] those paths carry too little light to show, so
+    all three must agree; a gap there would be a bias of the weights, not
+    of the truncation.  With Russian roulette (MODES["max_bounces"]
+    bounces) all three must agree as well.  Then light_trace and
+    path_trace renders of the glass bench box through K1/K2, each held to
+    its render through their plain versions."""
+    from bpt_tpu_torch.core import rng
+    from bpt_tpu_torch.integrators.bdpt import BDPTConfig
+    from bpt_tpu_torch.ops import trace_any as ta
+    from bpt_tpu_torch.ops import trace_closest as tc
+    from bpt_tpu_torch.scene.procedural import cornell_box_scene
+
+    t0 = time.perf_counter()
+    w, spp, r = MODES["width"], MODES["spp"], MODES["replicates"]
+    scene, _, cam = cornell_box_scene(w, w, device=device)
+    cam_consts = cam.device_constants(device)
+    out = {"phase": "modes",
+           "config": f"all-diffuse cbox {w}x{w} {spp}spp sb{spp}, {r} seeds "
+                     f"from 100; no_rr at rr_depth {MODES['rr_depth']} and "
+                     f"{MODES['deep_rr_depth']}, RR from rr_depth "
+                     f"{MODES['rr_depth']} to {MODES['max_bounces']} bounces",
+           "nvidia_smi": smi}
+    launches = {}
+    settings = (("no_rr", dict(rr_depth=MODES["rr_depth"])),
+                ("no_rr_deep", dict(rr_depth=MODES["deep_rr_depth"])),
+                ("rr", dict(rr_depth=MODES["rr_depth"], no_rr=False,
+                            max_bounces=MODES["max_bounces"])))
+    for setting, extra in settings:
+        stats, walls, nrays = {}, {}, {}
+        for mode in ("bdpt", "path_trace", "light_trace"):
+            cfg = BDPTConfig(w, w, spp=spp, mode=mode, **extra)
+            m, walls[mode], nrays[mode] = [], 0.0, 0
+            for i in range(r):
+                fb, nr, wall, ln, plain_calls, _ = _timed_chunk(
+                    scene, cam_consts, cfg, rng.key(100 + i, device), spp,
+                    spp)
+                if plain_calls or not bool(torch.isfinite(fb).all()) \
+                        or float(fb.min()) < 0.0:
+                    raise AssertionError(f"{mode}: plain calls {plain_calls}"
+                                         f" or non-finite or negative pixels")
+                m.append(float(fb.double().mean()))
+                walls[mode] += wall
+                nrays[mode] += nr
+                add_launches(launches, ln)
+            stats[mode] = (statistics.mean(m),
+                           statistics.stdev(m) / len(m) ** 0.5)
+        out[setting] = {
+            "mean_and_se": stats,
+            "z": {"bdpt_vs_path_trace": _z(stats["bdpt"],
+                                           stats["path_trace"]),
+                  "bdpt_vs_light_trace": _z(stats["bdpt"],
+                                            stats["light_trace"]),
+                  "path_trace_vs_light_trace": _z(stats["path_trace"],
+                                                  stats["light_trace"])},
+            "bdpt_rel_gap": {k: stats["bdpt"][0] / stats[k][0] - 1.0
+                             for k in ("path_trace", "light_trace")},
+            "wall_s": walls, "nrays": nrays,
+            "rays_per_s": {k: nrays[k] / walls[k] for k in walls}}
+    out["launches"] = launches
+    emit(out, t0)
+    if min(launches["k1_closest_hit"], launches["k2_any_hit"]) <= 0 or any(
+            n for k, n in launches.items()
+            if k not in ("k1_closest_hit", "k2_any_hit")):
+        raise AssertionError(f"modes launched {launches}")
+    gated = [out["no_rr"]["z"]["path_trace_vs_light_trace"]]
+    gated += [z for k in ("no_rr_deep", "rr") for z in out[k]["z"].values()]
+    if max(gated) >= 4.0:
+        raise AssertionError(f"the estimators disagree: {out}")
+    w = SMALL["width"]
+    scene, _, cam = cornell_box_scene(w, w, device=device,
+                                      right_object="glass_sphere",
+                                      sphere_subdiv=3)
+    for mode in ("light_trace", "path_trace"):
+        compare_paths(f"glass box {mode}, K1/K2", scene, cam,
+                      BDPTConfig(w, w, spp=SMALL["spp"],
+                                 rr_depth=SMALL["rr_depth"], mode=mode),
+                      dict(closest_hit=tc.closest_hit_plain,
+                           any_hit=ta.any_hit_plain))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1267,10 +1552,18 @@ def main():
         {"k6_closest_hit_sweep": "k1_closest_hit", "k2_any_hit": "k2_any_hit"},
         (fb, base), exact=False)
     launches["k6_closest_hit_sweep"] = routed["k6_closest_hit_sweep"]
+    k12 = {k: launches[k] for k in ("k1_closest_hit", "k2_any_hit")}
+    add_launches(k12, phase_slice_sb4(scene, cam, device, smi, (fb, base)))
     del fb
     launches.update({k: v for k, v in phase_slice_large(
         large, cfg_t, device, smi).items() if k.startswith(("k3", "k4"))})
     phase_paths(device, large, cfg_t.camera)
+    del large
+    torch.cuda.empty_cache()
+    add_launches(k12, phase_slice_rr(device, smi))
+    add_launches(k12, phase_modes(device, smi))
+    # The kernels line counts K1/K2 over every path that routes to them.
+    launches.update({k: k12[k] for k in ("k1_closest_hit", "k2_any_hit")})
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

@@ -25,8 +25,14 @@ from bpt_tpu_torch.integrators import bdpt as tb
 from bpt_tpu_torch.scene.scene import flatten_fields, scene_from_arrays
 
 
-def _pair(w):
-    js, _, jc = jax_cbox(w, w, right_object="glass_sphere", sphere_subdiv=3)
+GLASS = dict(right_object="glass_sphere", sphere_subdiv=3)
+
+
+def _pair(w, scene=GLASS):
+    """Both packages' Cornell box built from the same arrays by the
+    reference's cornell_box_scene(w, w, **scene): the glass box unless
+    `scene` says otherwise."""
+    js, _, jc = jax_cbox(w, w, **scene)
     ts = scene_from_arrays({k: np.asarray(v) for k, v in
                             flatten_fields(js)}, "cpu")
     tc = tcam.Camera.make(jc.o, jc.at, jc.up, jc.fov, jc.width, jc.height)
@@ -41,6 +47,16 @@ def _gate(a, b, na, nb):
     assert abs(na - nb) / max(nb, 1) <= 1e-3, (na, nb)
     assert mean_rel <= 1e-3, (a.mean(), b.mean())
     assert frac_off <= 0.02, frac_off
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: these small tensors run as fast on one, and
+    the suite runs several test processes side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("w,spp,rr,sb", [(16, 2, 3, 1), (24, 4, 4, 2)])
@@ -58,14 +74,15 @@ def test_render_image_matches_reference(w, spp, rr, sb):
     _gate(ti, np.asarray(ji), tn, jn)
 
 
-def _walks(w=16, rr=4):
-    """Both packages' fused_subpath_walks at the same lane keys and
-    primary rays; returns (js, jcc, cfg_j, jout, ts, tcc, cfg_t, tout)."""
-    js, jc, ts, tc = _pair(w)
-    cfg_j = jb.BDPTConfig(w, w, spp=2, rr_depth=rr)
-    cfg_t = tb.BDPTConfig(w, w, spp=2, rr_depth=rr)
-    b = w * w
-    pix = np.arange(b, dtype=np.int32)
+def _primaries(w=16, scene=GLASS, **cfg):
+    """Both packages' scenes, camera constants, configs, lane keys and
+    primary rays (direction, alive) of one sample at seed 5: (js, jcc,
+    cfg_j, jk, jd, jalive, ts, tcc, cfg_t, tk, td, talive)."""
+    js, jc, ts, tc = _pair(w, scene)
+    cfg = {"spp": 2, "rr_depth": 4, **cfg}
+    cfg_j = jb.BDPTConfig(w, w, **cfg)
+    cfg_t = tb.BDPTConfig(w, w, **cfg)
+    pix = np.arange(w * w, dtype=np.int32)
     jk = jrng.lane_keys(jax.random.key(5), jnp.asarray(pix))
     tk = trng.lane_keys(trng.key(5, device="cpu"), torch.from_numpy(pix))
     jcc = jc.device_constants()
@@ -74,32 +91,43 @@ def _walks(w=16, rr=4):
     _, jd = jcam.generate_rays(jcc, w, w, jnp.asarray(pix), jitter)
     alive = np.array(jax_trace_closest(
         js, jnp.broadcast_to(jcc["o"], jd.shape), jd, 1.0, 1000.0).valid)
-    d = np.array(jd)
+    return (js, jcc, cfg_j, jk, jd, jnp.asarray(alive), ts, tcc, cfg_t, tk,
+            torch.from_numpy(np.array(jd)), torch.from_numpy(alive))
 
-    jout = jb.fused_subpath_walks(js, jcc, cfg_j, jk, b, jd,
-                                  jnp.asarray(alive))
-    tout = tb.fused_subpath_walks(ts, tcc, cfg_t, tk, b, torch.from_numpy(d),
-                                  torch.from_numpy(alive))
+
+def _walks(w=16, scene=GLASS, **cfg):
+    """Both packages' fused_subpath_walks at the same lane keys and
+    primary rays; returns (js, jcc, cfg_j, jout, ts, tcc, cfg_t, tout)."""
+    (js, jcc, cfg_j, jk, jd, ja, ts, tcc, cfg_t, tk, td,
+     ta) = _primaries(w, scene, **cfg)
+    b = w * w
+    jout = jb.fused_subpath_walks(js, jcc, cfg_j, jk, b, jd, ja)
+    tout = tb.fused_subpath_walks(ts, tcc, cfg_t, tk, b, td, ta)
     return js, jcc, cfg_j, jout, ts, tcc, cfg_t, tout
 
 
-def test_fused_subpath_walks_match_reference():
-    """One fused_subpath_walks call at the same lane keys and primary
-    rays: every per-depth output of both walks."""
-    _, _, _, jout, _, _, _, tout = _walks()
+def _assert_slots_match(t_slots, j_slots):
+    """Subpath slots of both packages: flags and triangle ids exactly,
+    the rest to rtol 1e-4 / atol 1e-5."""
+    np.testing.assert_array_equal(t_slots.valid.numpy(),
+                                  np.asarray(j_slots.valid))
+    np.testing.assert_array_equal(t_slots.tri.numpy(),
+                                  np.asarray(j_slots.tri))
+    for name in ("p", "ns", "wo", "throughput", "vcm", "vc", "rr", "u",
+                 "v"):
+        np.testing.assert_allclose(
+            getattr(t_slots, name).numpy(),
+            np.asarray(getattr(j_slots, name)), rtol=1e-4, atol=1e-5,
+            err_msg=name)
+
+
+def _assert_walks_match(jout, tout):
+    """Every output of both packages' fused_subpath_walks."""
     (jl, jpix, jrgb, jok, jli, je, jnee, jn) = jout
     (tl, tpix, trgb, tok, tli, te, tnee, tn) = tout
     assert int(tn) == int(jn)
-    for j_slots, t_slots in ((jl, tl), (je, te)):
-        np.testing.assert_array_equal(t_slots.valid.numpy(),
-                                      np.asarray(j_slots.valid))
-        np.testing.assert_array_equal(t_slots.tri.numpy(),
-                                      np.asarray(j_slots.tri))
-        for name in ("p", "ns", "wo", "throughput", "vcm", "vc", "u", "v"):
-            np.testing.assert_allclose(
-                getattr(t_slots, name).numpy(),
-                np.asarray(getattr(j_slots, name)), rtol=1e-4, atol=1e-5,
-                err_msg=name)
+    _assert_slots_match(tl, jl)
+    _assert_slots_match(te, je)
     np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
     np.testing.assert_array_equal(tpix.numpy(), np.asarray(jpix))
     np.testing.assert_allclose(trgb.numpy(), np.asarray(jrgb), rtol=1e-4,
@@ -112,6 +140,13 @@ def test_fused_subpath_walks_match_reference():
                                    rtol=1e-4, atol=1e-5)
 
 
+def test_fused_subpath_walks_match_reference():
+    """One fused_subpath_walks call at the same lane keys and primary
+    rays: every per-depth output of both walks."""
+    _, _, _, jout, _, _, _, tout = _walks()
+    _assert_walks_match(jout, tout)
+
+
 def test_samples_per_batch_does_not_change_the_estimate():
     _, _, ts, tc = _pair(16)
     cfg = tb.BDPTConfig(16, 16, spp=4, rr_depth=3)
@@ -121,16 +156,71 @@ def test_samples_per_batch_does_not_change_the_estimate():
     np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("change", [
-    dict(mode="path_trace"), dict(mode="light_trace"), dict(no_rr=False),
-    dict(light_pool=16), dict(rr_depth=1), dict(rr_depth=200)],
-    ids=["path_trace", "light_trace", "rr", "pool", "no_steps", "chunked"])
+_ONCE_RAISED = [dict(mode="path_trace"), dict(mode="light_trace"),
+                dict(no_rr=False, max_bounces=4), dict(rr_depth=1),
+                dict(rr_depth=4), dict(rr_depth=1, mode="light_trace")]
+
+
+@pytest.mark.parametrize("change", _ONCE_RAISED,
+                         ids=["path_trace", "light_trace", "rr", "no_steps",
+                              "chunked", "no_steps_light_trace"])
+def test_configs_once_outside_the_slice_render(change, monkeypatch):
+    """The configurations the port once refused render as the reference
+    renders them.  Without a walk step (rr_depth 1) render_sample takes
+    its non-mega branch: BDPT traces the primaries alone and gives a black
+    image, the light tracer adds the emitter the primary ray sees; both
+    exactly as the reference."""
+    js, jc, ts, tc = _pair(16)
+    # chunked: a 3 x 3 x 512-lane pair grid against a budget of 1,000
+    # lanes, so the pairs go in three one-row chunks.
+    monkeypatch.setattr(jb, "_MEGA_MAX_LANES", 1000)
+    monkeypatch.setattr(tb, "MEGA_MAX_LANES", 1000)
+    cfg = {"spp": 2, "rr_depth": 3, **change}
+    ji, jn = jb.render_image(js, jc, jb.BDPTConfig(16, 16, **cfg), seed=1,
+                             samples_per_batch=2)
+    ti, tn = tb.render_image(ts, tc, tb.BDPTConfig(16, 16, **cfg), seed=1,
+                             samples_per_batch=2)
+    ti, ji = ti.numpy(), np.asarray(ji)
+    assert np.isfinite(ti).all() and (ti >= 0).all()
+    if cfg["rr_depth"] == 1:
+        assert tn == jn == 16 * 16 * 2
+        np.testing.assert_array_equal(ti, ji)
+        assert (ji.max() > 0.0) == (cfg.get("mode") == "light_trace")
+    else:
+        assert ti.mean() > 0.0
+        _gate(ti, ji, tn, jn)
+
+
+@pytest.mark.parametrize("change", [dict(light_pool=16)], ids=["pool"])
 def test_configs_outside_the_slice_raise(change):
     _, _, ts, tc = _pair(16)
-    # rr_depth=200: a 199 x 199 x 256-lane pair grid, past the budget.
     cfg = tb.BDPTConfig(16, 16, **{"spp": 1, "rr_depth": 3, **change})
     with pytest.raises(NotImplementedError):
         tb.render_image(ts, tc, cfg, seed=0)
+
+
+def test_render_sample_derives_lane_keys_from_the_key():
+    """render_sample(..., key, pixel_idx) with lkeys=None keys its lanes
+    by rng.lane_keys(key, pixel_idx), as the reference does."""
+    _, _, ts, tc = _pair(16)
+    cfg = tb.BDPTConfig(16, 16, spp=2, rr_depth=3)
+    cc = tc.device_constants("cpu")
+    key = trng.key(11, device="cpu")
+    pix = torch.arange(256, dtype=torch.int32)
+    a, na = tb.render_sample(ts, cc, cfg, key, pix)
+    b, nb = tb.render_sample(ts, cc, cfg, key, pix,
+                             lkeys=trng.lane_keys(key, pix))
+    assert int(na) == int(nb) > 256
+    np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert float(a.sum()) > 0.0
+
+
+def test_render_chunk_refuses_a_key_on_another_device():
+    _, _, ts, tc = _pair(16)
+    cfg = tb.BDPTConfig(16, 16, spp=1, rr_depth=3)
+    key = trng.key(0, device="meta")
+    with pytest.raises(ValueError, match="device|meta"):
+        tb.render_chunk(ts, tc.device_constants("cpu"), cfg, key)
 
 
 def test_mega_connect_matches_reference():

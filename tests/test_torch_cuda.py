@@ -91,6 +91,65 @@ def test_kernel_render_matches_plain_render(cuda_scene):
     torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
 
 
+def _render_kernel_and_plain(scene, cfg):
+    """A 32x32 render through K1/K2 and one through their plain versions
+    (swapped into accel/api.py here only), with the K2 launches of the
+    kernel render: ((img, nrays), (img, nrays), k2_launches)."""
+    from unittest import mock
+
+    from bpt_tpu_torch.accel import api
+    from bpt_tpu_torch.core.camera import Camera
+    from bpt_tpu_torch.integrators.bdpt import render_image
+    from bpt_tpu_torch.ops.trace_any import any_hit, any_hit_plain
+    from bpt_tpu_torch.ops.trace_closest import closest_hit_plain
+
+    cam = Camera.make([0.0, 1.0, 3.8], [0.0, 1.0, 0.0], [0.0, 1.0, 0.0],
+                      39.0, 32, 32)
+    k2 = any_hit.launches
+    kernel = render_image(scene, cam, cfg, seed=1)
+    k2 = any_hit.launches - k2
+    with mock.patch.object(api, "closest_hit", closest_hit_plain), \
+            mock.patch.object(api, "any_hit", any_hit_plain):
+        plain = render_image(scene, cam, cfg, seed=1)
+    return kernel, plain, k2
+
+
+def _assert_agree(kernel, plain):
+    """The aggregate gate of a kernel render against a plain one: nrays
+    and mean within 1e-3 relative, at most 2% of pixels off by >0.1%."""
+    (a, na), (b, nb) = kernel, plain
+    a, b = a.double(), b.double()
+    assert torch.isfinite(a).all() and float(a.mean()) > 0.0
+    assert abs(na - nb) <= 1e-3 * nb
+    assert abs(float(a.mean() - b.mean())) <= 1e-3 * float(b.mean())
+    off = (a - b).abs() / torch.clamp_min(b.abs(), 1e-3) > 1e-3
+    assert float(off.double().mean()) <= 0.02
+
+
+@pytest.mark.parametrize("change", [
+    dict(no_rr=False, rr_depth=2, max_bounces=6), dict(mode="light_trace"),
+    dict(mode="path_trace")], ids=["rr", "light_trace", "path_trace"])
+def test_estimator_renders_through_the_kernels(cuda_scene, change):
+    from bpt_tpu_torch.integrators.bdpt import BDPTConfig
+
+    cfg = BDPTConfig(32, 32, **{"spp": 2, "rr_depth": 4, **change})
+    kernel, plain, k2 = _render_kernel_and_plain(cuda_scene, cfg)
+    assert k2 > 0
+    _assert_agree(kernel, plain)
+
+
+def test_chunked_connect_through_the_kernels(cuda_scene, monkeypatch):
+    """A pair grid of 3 x 3 x 1,024 lanes against a budget of 4,000: one
+    NEE + t=1 any-hit launch and three one-row pair launches a sample."""
+    from bpt_tpu_torch.integrators import bdpt
+
+    monkeypatch.setattr(bdpt, "MEGA_MAX_LANES", 4000)
+    cfg = bdpt.BDPTConfig(32, 32, spp=2, rr_depth=4)
+    kernel, plain, k2 = _render_kernel_and_plain(cuda_scene, cfg)
+    assert k2 == 2 * 4
+    _assert_agree(kernel, plain)
+
+
 @pytest.fixture(scope="module")
 def cuda_subdiv5():
     """The glass box at subdiv 5 (235 treelets): groups of 8, 64 and
