@@ -99,6 +99,12 @@ def is_delta(lane: LaneMaterial):
     return (lane.kind == MIRROR) | (lane.kind == GLASS)
 
 
+def emission(mat: MaterialTable, mid):
+    """getEmission by material id (reference:
+    src/core/integrator.cpp:41-44)."""
+    return mat.emission[mid.long()]
+
+
 # ---------------------------------------------------------------------------
 # eval / pdf
 # ---------------------------------------------------------------------------
@@ -139,6 +145,16 @@ def _mixture_pdf(lane, wo, wi, p_phong=None):
     p_diff = warp.square_to_cosine_hemisphere_pdf(wi)
     w = lane.spec_weight
     return p_phong * w + p_diff * (1.0 - w)
+
+
+def eval_lane(lane: LaneMaterial, wo, wi):
+    """f * cos(theta_i); zero for delta BSDFs (reference:
+    perfectmirror.h:33-39, glass.h:55-59)."""
+    d = _diffuse_eval(lane, wo, wi)
+    p = _phong_like_eval(lane, wo, wi)
+    k = lane.kind[..., None]
+    out = torch.where(k == DIFFUSE, d, _zeros(d))
+    return torch.where((k == PHONG) | (k == MIXTURE), p, out)
 
 
 def pdf_lane(lane: LaneMaterial, wo, wi):
@@ -189,6 +205,16 @@ def eval_pdfs_lane(lane: LaneMaterial, wo, wi):
     return f, pick(d_fwd), pick(d_rev)
 
 
+def eval_bsdf(mat: MaterialTable, mid, wo, wi, kd_override=None):
+    """Gathering wrapper around eval_lane."""
+    return eval_lane(gather_lane(mat, mid, kd_override), wo, wi)
+
+
+def pdf_bsdf(mat: MaterialTable, mid, wo, wi, kd_override=None):
+    """Gathering wrapper around pdf_lane."""
+    return pdf_lane(gather_lane(mat, mid, kd_override), wo, wi)
+
+
 # ---------------------------------------------------------------------------
 # sample
 # ---------------------------------------------------------------------------
@@ -213,6 +239,12 @@ def _glass_sample(lane, wo, u):
     val = torch.where(reflect[..., None], torch.ones_like(lane.transmittance),
                       lane.transmittance)
     return wi, val, torch.ones_like(fr)
+
+
+def sample_bsdf(mat: MaterialTable, mid, wo, u2,
+                kd_override=None) -> BsdfSample:
+    """Gathering wrapper around sample_lane."""
+    return sample_lane(gather_lane(mat, mid, kd_override), wo, u2)
 
 
 def sample_lane(lane: LaneMaterial, wo, u2) -> BsdfSample:

@@ -13,6 +13,7 @@ import torch
 PI = 3.14159265358979323846
 INV_PI = 1.0 / PI
 INV_TWOPI = 1.0 / (2.0 * PI)
+INV_FOURPI = 1.0 / (4.0 * PI)
 DEG2RAD = PI / 180.0
 # Ray min-t / Moeller-Trumbore determinant cutoff (reference: platform.h:57).
 EPSILON = 1e-8
@@ -58,6 +59,11 @@ def luminance(rgb):
             + rgb[..., 2] * _LUMA[2])
 
 
+def safe_sqrt(v):
+    """sqrt(max(v, 0)) (reference: src/core/math.h:12-14)."""
+    return torch.sqrt(torch.clamp_min(v, 0.0))
+
+
 def barycentric(a, b, c, u, v):
     """a*(1-u-v) + b*u + c*v (reference: src/core/math.h:19-22)."""
     u = u[..., None]
@@ -100,6 +106,11 @@ def frame_to_world(frame, v):
     """Local -> world: s*x + t*y + n*z (reference: core.h:161-163)."""
     return (v[..., 0:1] * frame[..., 0, :] + v[..., 1:2] * frame[..., 1, :]
             + v[..., 2:3] * frame[..., 2, :])
+
+
+def frame_n(frame):
+    """The normal row of a frame."""
+    return frame[..., 2, :]
 
 
 def reflect_local(d):

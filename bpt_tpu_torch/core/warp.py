@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from .math import INV_PI, INV_TWOPI, PI
+from .math import INV_FOURPI, INV_PI, INV_TWOPI, PI
 
 
 def _sphere_dir(phi, cos_theta):
@@ -17,9 +17,24 @@ def _sphere_dir(phi, cos_theta):
                         sin_theta * torch.sin(phi), cos_theta], dim=-1)
 
 
+def square_to_uniform_sphere(u):
+    """(reference: math.h:119-127)"""
+    return _sphere_dir(u[..., 0] * (2.0 * PI), 1.0 - 2.0 * u[..., 1])
+
+
+def square_to_uniform_sphere_pdf():
+    return INV_FOURPI
+
+
 def square_to_uniform_hemisphere(u):
     """cosTheta = u.y directly (reference: math.h:136-144)."""
     return _sphere_dir(u[..., 0] * (2.0 * PI), u[..., 1])
+
+
+def square_to_uniform_hemisphere_pdf(_v=None):
+    """Constant 1/(2 pi); the reference ignores its argument
+    (math.h:146-151)."""
+    return INV_TWOPI
 
 
 def square_to_uniform_disk_concentric(u):
@@ -79,3 +94,14 @@ def square_to_uniform_triangle(u):
     """Uniform barycentric (u, v) on a triangle (reference: math.h:229-234)."""
     a = torch.sqrt(torch.clamp_min(1.0 - u[..., 0], 0.0))
     return torch.stack([1.0 - a, a * u[..., 1]], dim=-1)
+
+
+def square_to_uniform_cone(u, cos_theta_max):
+    """(reference: math.h:236-245)"""
+    cos_theta = (1.0 - u[..., 0]) + u[..., 0] * cos_theta_max
+    return _sphere_dir(u[..., 1] * (2.0 * PI), cos_theta)
+
+
+def square_to_uniform_cone_pdf(cos_theta_max):
+    """(reference: math.h:247-254)"""
+    return INV_TWOPI / (1.0 - cos_theta_max)

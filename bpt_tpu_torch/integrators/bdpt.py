@@ -58,6 +58,7 @@ from .common import (
     emission_at,
     make_interaction,
     sample_emitter_position,
+    sample_lane_keys,
     textured_kd,
 )
 
@@ -888,16 +889,12 @@ def render_chunk(scene, cam_consts, cfg: BDPTConfig, key, spp_chunk: int = 1,
     if key.device != dev:
         raise ValueError(f"the key is on {key.device}, the scene on {dev}")
     pixel_idx = _blocked_pixel_order(w, h, dev)
-    # Pixel-major interleave (p0s0, p0s1, ..., p1s0, ...).
-    pixel_idx_t = pixel_idx.repeat_interleave(sb)
 
     fb = torch.zeros((w * h, 3), dtype=torch.float32, device=dev)
     nrays = torch.zeros((), dtype=torch.int64, device=dev)
     for bi in range(spp_chunk // sb):
         sids = sample_offset + bi * sb + torch.arange(sb, device=dev)
-        skeys = rng.fold_in(key[None, :], sids)                   # (sb, 2)
-        lkeys = rng.fold_in(skeys[:, None, :], pixel_idx[None, :])
-        lkeys = lkeys.transpose(0, 1).reshape(sb * w * h, 2)    # pixel-major
+        pixel_idx_t, lkeys = sample_lane_keys(key, pixel_idx, sids)
         fb_s, nr = render_sample(scene, cam_consts, cfg, key, pixel_idx_t,
                                  lkeys=lkeys)
         fb = fb + fb_s

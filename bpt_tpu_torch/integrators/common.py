@@ -10,7 +10,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..accel.api import Hit
+from ..accel.api import Hit, trace_closest
 from ..core import rng, warp
 from ..core.math import barycentric, frame_to_local, make_frame, normalize
 from ..scene.textures import albedo_at
@@ -112,3 +112,22 @@ def textured_kd(scene, it: Interaction):
     """Per-lane textured diffuse at an interaction (None without
     textures)."""
     return albedo_at(scene, it.tri, it.u, it.v)
+
+
+def primary_trace(scene, o, d, near, far):
+    """Closest hit of the camera rays on (near, far) and its
+    interaction."""
+    hit = trace_closest(scene, o, d, near, far)
+    return hit, make_interaction(scene, d, hit)
+
+
+def sample_lane_keys(key, pixel_idx, sample_ids):
+    """Lane keys of several samples batched together, pixel-major
+    (p0s0, p0s1, ..., p1s0, ...): sample s of pixel p is keyed
+    fold_in(fold_in(key, s), p), as one sample at a time would key it.
+    Returns (pixel ids (S*P,), lane keys (S*P, 2))."""
+    skeys = rng.fold_in(key[None, :], sample_ids)                 # (S, 2)
+    lkeys = rng.fold_in(skeys[:, None, :], pixel_idx[None, :])    # (S, P, 2)
+    n = sample_ids.shape[0] * pixel_idx.shape[0]
+    return (pixel_idx.repeat_interleave(sample_ids.shape[0]),
+            lkeys.transpose(0, 1).reshape(n, 2))

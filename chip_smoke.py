@@ -43,6 +43,26 @@ Three more paths run K1 and K2:
     on 15-step walks), and light_trace / path_trace renders of the glass
     box held to renders through the plain versions.
 
+The other integrators and the command-line renderer run K1-K4 too:
+
+  * `path`: the explicit path tracer with the scene file's defaults
+    (Russian roulette from depth 5, 32 bounces, one emitter sample) on
+    the bench scene, 256x256, 4 spp, through K1; rays/s, K1 launches a
+    sample (at most 1 + 32 x 9 = 289; fewer where a loop ends early),
+    peak memory, device busy time and idle share; `path_large`: the same
+    on the large scene read from its file, 1 spp, through K3;
+  * `direct`: the five strategies of integrators/direct.py, and `misc`:
+    normal, simple, ao and ro, on the bench scene at 256x256, 4 spp
+    (ao also on the large scene through K3/K4), with their launches a
+    sample asserted;
+  * each of these held to its render through the plain versions at
+    64x64 (32x32 on the large scene), with compare_paths' gate;
+  * `integrators_xest`: the path tracer against BDPT with roulette on
+    modes' all-diffuse box and seeds (64x64, 8 spp, 16 bounces), |z| < 4;
+  * `cli`: `python -m bpt_tpu_torch.cli` in a subprocess on 512x512
+    scene files: bdpt with --checkpoint and then resumed, path, direct
+    (mis) and ao, each EXR read back and its meta.json naming the card.
+
 Each kernel's launch count is reset just before each path runs and read
 just after; the kernels line sums them over the paths.  A small render
 through the kernels is compared with one through the plain versions on
@@ -78,6 +98,22 @@ RR = dict(width=512, spp=2, rr_depth=2, max_bounces=12)
 # the walks' depth without roulette at which truncation no longer shows.
 MODES = dict(width=64, spp=8, rr_depth=3, replicates=6, max_bounces=16,
              deep_rr_depth=16)
+# The other integrators (path.py, direct.py, misc.py) at the bench's
+# width, and their renders through the plain versions at 64x64.
+OTHER = dict(width=256, spp=4, plain_width=64, plain_spp=2)
+# Closest-hit launches a sample of the explicit path tracer with the scene
+# file's defaults if none of its loops ended early: the primary rays, then
+# at each of 32 bounces the emitter sample and 8 re-rolls.
+PATH_K1_MAX = 1 + 32 * (1 + 8)
+# Samples of the path tracer on the large scene (phase path_large).
+PATH_LARGE_SPP = 1
+# The path tracer against BDPT (phase integrators_xest), both with Russian
+# roulette to 16 bounces, on modes' box and seeds.
+XEST = dict(width=64, spp=8, replicates=6, max_bounces=16, bdpt_rr_depth=3,
+            path_rr_depth=5)
+# The command-line renderer on scene files: 512x512, bdpt at 4 spp in
+# chunks of 2 (checkpointed), the others at 4 spp.
+CLI = dict(width=512, bdpt_spp=4, spp=4, timeout_s=300)
 # The second table of K5-K7: more treelets than a candidate buffer (K5)
 # or a compaction round (K7) holds.
 SUBDIV6 = dict(sphere_subdiv=6, n_treelets=923)
@@ -631,7 +667,7 @@ def phase_large_scene(device):
     if (meta.n_triangles, nt) != (LARGE["n_triangles"], LARGE["n_treelets"]):
         raise AssertionError("the large scene is not the 327,704-triangle, "
                              "3,656-treelet glass box")
-    return scene, cfg
+    return scene, meta, cfg
 
 
 def phase_k3(large, large_rays, bench, bench_rays, info):
@@ -848,14 +884,21 @@ _KERNEL_GROUPS = (("k3_closest_hit_stream", "closest_hit_stream_kernel"),
 
 def _profile_batch(scene, cam_consts, cfg, key, batch_wall_s,
                    sb=BENCH["sb"]):
-    """Device time by kernel over one batch of `sb` samples
+    """_profile_run over one BDPT batch of `sb` samples."""
+    from bpt_tpu_torch.integrators.bdpt import render_chunk
+
+    return _profile_run(lambda: render_chunk(scene, cam_consts, cfg, key, sb,
+                                             samples_per_batch=sb),
+                        batch_wall_s)
+
+
+def _profile_run(run, batch_wall_s):
+    """Device time by kernel over one call of `run`, one batch of a render
     (torch.profiler).  The idle share is taken against `batch_wall_s`,
     the unprofiled wall of one batch, because the profiler itself slows
     the host down; the share against the profiled batch's wall is
     printed beside it."""
     from torch.profiler import ProfilerActivity, profile
-
-    from bpt_tpu_torch.integrators.bdpt import render_chunk
 
     # Device activity only: the busy time is read from kernel events
     # alone; the profiler's own work after the batch is printed as
@@ -863,23 +906,24 @@ def _profile_batch(scene, cam_consts, cfg, key, batch_wall_s,
     t_all = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        render_chunk(scene, cam_consts, cfg, key, sb, samples_per_batch=sb)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    processing_s = time.perf_counter() - t_all - wall
     groups = {g: 0.0 for g, _ in _KERNEL_GROUPS}
     groups.update(sort=0.0, other=0.0)
-    for ev in events:
-        us = ev.self_device_time_total
-        if not us or ev.device_type != torch.autograd.DeviceType.CUDA:
+    # The raw device events (kernels, copies, fills), not key_averages(),
+    # which first builds a Python object for every event of the run: 38-46
+    # s for one path tracer sample on an H100.
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != torch.autograd.DeviceType.CUDA:
             continue
-        name = ev.key
+        name = ev.name()
         group = next((g for g, k in _KERNEL_GROUPS if k in name), None)
         if group is None:
             low = name.lower()
             group = "sort" if "sort" in low or "radix" in low else "other"
-        groups[group] += us
+        groups[group] += ev.duration_ns() / 1e3
+    processing_s = time.perf_counter() - t_all - wall
     total = sum(groups.values())
     if total == 0.0:
         return {"profile": "not measured (no device time in the trace)"}
@@ -1190,20 +1234,29 @@ def agrees(v):
 
 
 def compare_paths(name, scene, cam, cfg, routes):
-    """One render through the kernels and one through the plain versions
-    (swapped in for this comparison only), gated on aggregates."""
+    """A BDPT render through the kernels and one through the plain
+    versions, gated on aggregates (compare_renders)."""
+    from bpt_tpu_torch.integrators.bdpt import render_image
+
+    compare_renders(name, f"{cfg.width}x{cfg.height} {cfg.spp}spp "
+                          f"rr{cfg.rr_depth}",
+                    lambda: render_image(scene, cam, cfg, seed=SEED), routes)
+
+
+def compare_renders(name, config, render, routes):
+    """render() -> (image, nrays) once through the kernels and once
+    through the plain versions `routes` (swapped into accel/api.py for
+    this comparison only), gated on aggregates."""
     from unittest import mock
 
     from bpt_tpu_torch.accel import api
-    from bpt_tpu_torch.integrators.bdpt import render_image
 
     t0 = time.perf_counter()
-    a, na = render_image(scene, cam, cfg, seed=SEED)
+    a, na = render()
     with mock.patch.multiple(api, **routes):
-        b, nb = render_image(scene, cam, cfg, seed=SEED)
-    out = {"phase": "kernel_vs_plain_render", "case": name,
-           "config": f"{cfg.width}x{cfg.height} {cfg.spp}spp "
-                     f"rr{cfg.rr_depth}", **image_agreement(a, na, b, nb),
+        b, nb = render()
+    out = {"phase": "kernel_vs_plain_render", "case": name, "config": config,
+           **image_agreement(a, na, b, nb),
            "finite": bool(torch.isfinite(a).all())}
     emit(out, t0)
     if not (agrees(out) and out["finite"]):
@@ -1237,9 +1290,8 @@ def phase_paths(device, large, cam_large):
 
 
 def _timed_chunk(scene, cam_consts, cfg, key, spp, sb, routes=None):
-    """One render_chunk of `spp` samples in batches of `sb`, kernel
-    launch counts reset just before and read just after, peak memory
-    reset before: (fb, nrays, wall_s, launches, plain_calls, peak)."""
+    """counted() of one render_chunk of `spp` samples in batches of `sb`,
+    through `routes` where given."""
     from contextlib import nullcontext
     from unittest import mock
 
@@ -1247,16 +1299,23 @@ def _timed_chunk(scene, cam_consts, cfg, key, spp, sb, routes=None):
     from bpt_tpu_torch.integrators.bdpt import render_chunk
 
     with mock.patch.multiple(api, **routes) if routes else nullcontext():
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        tw = time.perf_counter()
-        fb, nr = render_chunk(scene, cam_consts, cfg, key, spp,
-                              samples_per_batch=sb)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - tw
-        launches, plain_calls = read_counts()
-    return (fb, int(nr), wall, launches, plain_calls,
+        return counted(lambda: render_chunk(scene, cam_consts, cfg, key, spp,
+                                            samples_per_batch=sb))
+
+
+def counted(render):
+    """render() -> (image, nrays) with the kernel launch counts reset just
+    before and read just after and the peak memory reset before:
+    (image, nrays, wall_s, launches, plain_calls, peak)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    tw = time.perf_counter()
+    img, nr = render()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tw
+    launches, plain_calls = read_counts()
+    return (img, int(nr), wall, launches, plain_calls,
             torch.cuda.max_memory_allocated())
 
 
@@ -1491,6 +1550,299 @@ def phase_modes(device, smi):
     return launches
 
 
+def _plain_routes(*kernels):
+    """The plain versions of `kernels` ("k1".."k4") as accel/api.py
+    routes, for mock.patch."""
+    from bpt_tpu_torch.ops import trace_any as ta
+    from bpt_tpu_torch.ops import trace_closest as tc
+
+    routes = {"k1": dict(closest_hit=tc.closest_hit_plain),
+              "k2": dict(any_hit=ta.any_hit_plain),
+              "k3": dict(closest_hit_stream=tc.closest_hit_stream_plain),
+              "k4": dict(any_hit_stream=ta.any_hit_stream_plain)}
+    return {k: v for name in kernels for k, v in routes[name].items()}
+
+
+def render_phase(phase, case, config, render, spp, expect, smi,
+                 profile=None, **extra):
+    """One timed render() -> (image, nrays) of `spp` samples, launch
+    counts reset just before it and read just after, checked as
+    check_render checks a path; `expect` maps each kernel of the path to
+    its launches a sample, an int (exact) or a (low, high) range.
+    profile: optional (run one batch, samples in it) for the device
+    busy time and idle share.  Returns (its phase line, its launches)."""
+    t0 = time.perf_counter()
+    img, nrays, wall, launches, plain_calls, peak = counted(render)
+    per_sample = {k: n / spp for k, n in launches.items() if n}
+    lanes = img.numel() // 3 * spp
+    out = {"phase": phase, "case": case, "config": config, "nvidia_smi": smi,
+           "wall_s": wall, "nrays": nrays, "rays_per_s": nrays / wall,
+           "lanes_traced_per_s": lanes * sum(launches.values()) / spp / wall,
+           "peak_mem_bytes": peak, "launches": launches,
+           "launches_per_sample": per_sample,
+           "plain_calls_on_cuda": plain_calls,
+           "image_mean": float(img.double().mean()),
+           "finite": bool(torch.isfinite(img).all()), **extra}
+    if profile is not None:
+        run, samples = profile
+        out.update(_profile_run(run, wall * samples / spp))
+    emit(out, t0)
+    check_render(out, used=tuple(expect))
+    for k, want in expect.items():
+        lo, hi = (want, want) if isinstance(want, int) else want
+        if not lo <= per_sample[k] <= hi:
+            raise AssertionError(f"{phase} {case}: {per_sample[k]} {k} "
+                                 f"launches a sample, expected {want}")
+    return out, launches
+
+
+def phase_path(scene, cam, device, smi, name="bench", kernel="k1",
+               spp=None):
+    """The explicit path tracer with the scene file's defaults (Russian
+    roulette from depth 5, 32 bounces, one emitter sample, no BSDF
+    sample) at 256x256, one sample a batch, through `kernel` (K1 on the
+    bench scene, K3 on the large one).  Without the early ends of its
+    loops a sample runs PATH_K1_MAX closest-hit launches.  Held to its
+    render through the plain version at 64x64 (32x32 on the large
+    scene)."""
+    from bpt_tpu_torch.core import rng
+    from bpt_tpu_torch.core.camera import Camera
+    from bpt_tpu_torch.integrators.path import PathConfig, \
+        render_chunk_path, render_image_path
+
+    w, spp = OTHER["width"], spp or OTHER["spp"]
+    cfg = PathConfig(w, w, spp)
+    cam_consts = cam.device_constants(device)
+    key = rng.key(SEED, device)
+    tw = time.perf_counter()
+    render_chunk_path(scene, cam_consts, cfg, key, 1)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - tw
+    counter = {"k1": "k1_closest_hit", "k3": "k3_closest_hit_stream"}[kernel]
+    out, launches = render_phase(
+        "path" if name == "bench" else "path_large", name,
+        f"{name} scene {w}x{w} {spp}spp, path defaults (RR from depth "
+        f"{cfg.rr_depth}, {cfg.max_bounces} bounces), sb1, seed{SEED}",
+        lambda: render_chunk_path(scene, cam_consts, cfg, key, spp), spp,
+        {counter: (2, PATH_K1_MAX)}, smi,
+        profile=(lambda: render_chunk_path(scene, cam_consts, cfg, key, 1), 1),
+        warmup_s=warm_s, k1_launches_without_early_ends=PATH_K1_MAX)
+    ws = OTHER["plain_width"] if name == "bench" else SMALL_LARGE["width"]
+    cam_s = Camera.make(cam.o, cam.at, cam.up, cam.fov, ws, ws)
+    cfg_s = PathConfig(ws, ws, OTHER["plain_spp"])
+    compare_renders(f"path {name}, {kernel.upper()}",
+                    f"{ws}x{ws} {cfg_s.spp}spp path defaults",
+                    lambda: render_image_path(scene, cam_s, cfg_s, seed=SEED),
+                    _plain_routes(kernel))
+    return launches
+
+
+# K1 launches a sample of each direct strategy: the primary rays, one
+# shadow or emitter trace, and for mis also the BSDF sample's trace.
+DIRECT_K1 = {"area": 2, "solidAngle": 2, "cosineHemisphere": 2, "bsdf": 2,
+             "mis": 3}
+
+
+def phase_direct(scene, meta, cam, smi):
+    """The five strategies of integrators/direct.py on the bench scene at
+    256x256, 4 spp, each held to its render through K1's plain version
+    at 64x64."""
+    from bpt_tpu_torch.core.camera import Camera
+    from bpt_tpu_torch.integrators.direct import DirectConfig, \
+        render_image_direct
+
+    w, spp, ws = OTHER["width"], OTHER["spp"], OTHER["plain_width"]
+    cam_w = Camera.make(cam.o, cam.at, cam.up, cam.fov, w, w)
+    cam_s = Camera.make(cam.o, cam.at, cam.up, cam.fov, ws, ws)
+    launches = {}
+    for strategy, k1 in DIRECT_K1.items():
+        cfg = DirectConfig(w, w, spp, strategy=strategy)
+        _, ln = render_phase(
+            "direct", strategy, f"bench scene {w}x{w} {spp}spp seed{SEED}",
+            lambda: render_image_direct(scene, meta, cam_w, cfg, seed=SEED),
+            spp, {"k1_closest_hit": k1}, smi)
+        add_launches(launches, ln)
+        cfg_s = DirectConfig(ws, ws, OTHER["plain_spp"], strategy=strategy)
+        compare_renders(f"direct {strategy}, K1",
+                        f"{ws}x{ws} {cfg_s.spp}spp",
+                        lambda: render_image_direct(scene, meta, cam_s, cfg_s,
+                                                    seed=SEED),
+                        _plain_routes("k1"))
+    return launches
+
+
+def phase_misc(scene, meta, cam, smi, name="bench",
+               integrators=("normal", "simple", "ao", "ro"),
+               kernels=("k1", "k2")):
+    """The integrators of integrators/misc.py at 256x256, 4 spp: one
+    closest-hit launch a sample (the primary rays) and, but for normal,
+    one any-hit launch; each held to its render through the plain
+    versions at 64x64 (32x32 on the large scene)."""
+    from bpt_tpu_torch.core.camera import Camera
+    from bpt_tpu_torch.integrators.misc import MiscConfig, render_image_misc
+
+    w, spp = OTHER["width"], OTHER["spp"]
+    ws = OTHER["plain_width"] if name == "bench" else SMALL_LARGE["width"]
+    cam_w = Camera.make(cam.o, cam.at, cam.up, cam.fov, w, w)
+    cam_s = Camera.make(cam.o, cam.at, cam.up, cam.fov, ws, ws)
+    counter = {"k1": "k1_closest_hit", "k2": "k2_any_hit",
+               "k3": "k3_closest_hit_stream", "k4": "k4_any_hit_stream"}
+    launches = {}
+    for integrator in integrators:
+        cfg = MiscConfig(w, w, spp, integrator=integrator)
+        used = kernels[:1] if integrator == "normal" else kernels
+        _, ln = render_phase(
+            "misc", f"{integrator} ({name})",
+            f"{name} scene {w}x{w} {spp}spp seed{SEED}",
+            lambda: render_image_misc(scene, meta, cam_w, cfg, seed=SEED),
+            spp, {counter[k]: 1 for k in used}, smi)
+        add_launches(launches, ln)
+        cfg_s = MiscConfig(ws, ws, OTHER["plain_spp"], integrator=integrator)
+        compare_renders(f"misc {integrator} ({name}), "
+                        f"{'/'.join(k.upper() for k in used)}",
+                        f"{ws}x{ws} {cfg_s.spp}spp",
+                        lambda: render_image_misc(scene, meta, cam_s, cfg_s,
+                                                  seed=SEED),
+                        _plain_routes(*used))
+    return launches
+
+
+def phase_integrators_xest(device, smi):
+    """The explicit path tracer (NEE and MIS: one emitter and one BSDF
+    sample, roulette from depth 5) against BDPT with roulette from
+    rr_depth 3, both to 16 bounces, on the all-diffuse box (64x64, 8 spp
+    in one batch, 6 seeds from 100, as phase `modes`): the two image
+    means must agree, |z| < 4."""
+    from bpt_tpu_torch.core import rng
+    from bpt_tpu_torch.integrators.bdpt import BDPTConfig
+    from bpt_tpu_torch.integrators.path import PathConfig, render_chunk_path
+    from bpt_tpu_torch.scene.procedural import cornell_box_scene
+
+    t0 = time.perf_counter()
+    w, spp, r = XEST["width"], XEST["spp"], XEST["replicates"]
+    scene, _, cam = cornell_box_scene(w, w, device=device)
+    cam_consts = cam.device_constants(device)
+    bdpt_cfg = BDPTConfig(w, w, spp=spp, rr_depth=XEST["bdpt_rr_depth"],
+                          no_rr=False, max_bounces=XEST["max_bounces"])
+    path_cfg = PathConfig(w, w, spp, rr_depth=XEST["path_rr_depth"],
+                          max_bounces=XEST["max_bounces"], bsdf_samples=1)
+    means = {"bdpt": [], "path": []}
+    walls = {"bdpt": 0.0, "path": 0.0}
+    nrays = {"bdpt": 0, "path": 0}
+    launches = {}
+    for i in range(r):
+        key = rng.key(100 + i, device)
+        runs = {"bdpt": _timed_chunk(scene, cam_consts, bdpt_cfg, key, spp,
+                                     spp),
+                "path": counted(lambda: render_chunk_path(
+                    scene, cam_consts, path_cfg, key, spp,
+                    samples_per_batch=spp))}
+        for est, (fb, nr, wall, ln, plain_calls, _) in runs.items():
+            if plain_calls or not bool(torch.isfinite(fb).all()) \
+                    or float(fb.min()) < 0.0:
+                raise AssertionError(f"{est}: plain calls {plain_calls} or "
+                                     f"non-finite or negative pixels")
+            means[est].append(float(fb.double().mean()))
+            walls[est] += wall
+            nrays[est] += nr
+            add_launches(launches, ln)
+    stats = {k: (statistics.mean(m), statistics.stdev(m) / len(m) ** 0.5)
+             for k, m in means.items()}
+    out = {"phase": "integrators_xest",
+           "config": f"all-diffuse cbox {w}x{w} {spp}spp sb{spp}, {r} seeds "
+                     f"from 100; path: NEE + 1 BSDF sample, RR from depth "
+                     f"{path_cfg.rr_depth}; bdpt: RR from rr_depth "
+                     f"{bdpt_cfg.rr_depth}; both {XEST['max_bounces']} "
+                     f"bounces", "nvidia_smi": smi,
+           "mean_and_se": stats, "z": _z(stats["bdpt"], stats["path"]),
+           "path_rel_gap": stats["path"][0] / stats["bdpt"][0] - 1.0,
+           "wall_s": walls, "nrays": nrays,
+           "rays_per_s": {k: nrays[k] / walls[k] for k in walls},
+           "launches": launches}
+    emit(out, t0)
+    if min(launches["k1_closest_hit"], launches["k2_any_hit"]) <= 0 or any(
+            n for k, n in launches.items()
+            if k not in ("k1_closest_hit", "k2_any_hit")):
+        raise AssertionError(f"integrators_xest launched {launches}")
+    if out["z"] >= 4.0:
+        raise AssertionError(f"the path tracer and BDPT disagree: {out}")
+    return launches
+
+
+def phase_cli(smi):
+    """`python -m bpt_tpu_torch.cli` in a subprocess on scene files written
+    by export_cornell_box (the glass box, 512x512): bdpt with
+    --checkpoint, then resumed from the finished checkpoint (the same
+    image, no sample rendered); path (the scene file's defaults); direct
+    with samplingStrategy = "mis"; ao.  Each EXR is read back: finite,
+    512x512, not black, and its meta.json names the card."""
+    import numpy as np
+
+    from bpt_tpu_torch.io.exr import read_exr
+    from bpt_tpu_torch.scene.export import export_cornell_box
+
+    t0 = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo)
+    card = torch.cuda.get_device_name(0)
+    w = CLI["width"]
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def scene_file(name, integrator, spp, extra="", **kw):
+            path = export_cornell_box(
+                os.path.join(tmp, name), width=w, height=w, spp=spp,
+                integrator=integrator, right_object="glass_sphere",
+                sphere_subdiv=3, **kw)
+            with open(path, "a") as f:
+                f.write(extra)
+            return path
+
+        def cli(case, toml_path, *args):
+            tw = time.perf_counter()
+            run = subprocess.run(
+                [sys.executable, "-m", "bpt_tpu_torch.cli", toml_path,
+                 *args], cwd=repo, env=env, capture_output=True, text=True,
+                timeout=CLI["timeout_s"])
+            wall = time.perf_counter() - tw
+            if run.returncode != 0:
+                raise AssertionError(f"cli {case} exited {run.returncode}: "
+                                     f"{run.stderr[-2000:]}")
+            exr = os.path.splitext(toml_path)[0] + ".exr"
+            img = read_exr(exr)
+            with open(exr + ".meta.json") as f:
+                meta = json.load(f)
+            runs[case] = {"process_s": wall, "render_s": meta["wall_s"],
+                          "rays": meta["rays"],
+                          "rays_per_s": meta["rays_per_sec"],
+                          "image_mean": float(img.mean()),
+                          "device": meta["device"],
+                          "stdout_tail": run.stdout.strip()[-200:]}
+            if img.shape != (w, w, 3) or not np.isfinite(img).all() \
+                    or img.mean() <= 0.0:
+                raise AssertionError(f"cli {case}: bad image {img.shape}")
+            if meta["device"] != card or meta["n_devices"] != 1:
+                raise AssertionError(f"cli {case}: meta names "
+                                     f"{meta['device']!r}, the card {card!r}")
+            return img, run.stdout
+
+        bdpt = scene_file("bdpt", "bdpt", CLI["bdpt_spp"])
+        ck = os.path.join(tmp, "bdpt.ckpt")
+        first, _ = cli("bdpt", bdpt, "--checkpoint", ck, "--spp-chunk", "2")
+        again, stdout = cli("bdpt_resumed", bdpt, "--checkpoint", ck,
+                            "--spp-chunk", "2")
+        if f"resumed at {CLI['bdpt_spp']}/{CLI['bdpt_spp']} spp" not in \
+                stdout or not np.array_equal(first, again):
+            raise AssertionError("the resumed bdpt render is not the "
+                                 "checkpointed one")
+        cli("path", scene_file("path", "path", CLI["spp"], rr_depth=5))
+        cli("direct_mis", scene_file("direct", "direct", CLI["spp"],
+                                     'samplingStrategy = "mis"\n'))
+        cli("ao", scene_file("ao", "ao", CLI["spp"]))
+    emit({"phase": "cli", "config": f"python -m bpt_tpu_torch.cli, glass box "
+          f"{w}x{w} scene files, seed 0", "nvidia_smi": smi, "runs": runs},
+         t0)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1503,7 +1855,7 @@ def main():
     torch.cuda.set_device(device)
     info = phase_device()
     smi = info["nvidia_smi"]
-    scene, _, cam = bench_scene(device)
+    scene, meta, cam = bench_scene(device)
     scene6 = phase_subdiv6(device)
     l = BENCH["rr_depth"] - 1
     n_connect = l * (l + 2) * BENCH["width"] * BENCH["height"] * BENCH["sb"]
@@ -1517,7 +1869,7 @@ def main():
                    ("subdiv6", scene6.treelets_any, segs6)), info)
     phase_k12_edges(scene, device)
     rays6, segs6 = rays6[0], segs6[1]
-    large, cfg_t = phase_large_scene(device)
+    large, large_meta, cfg_t = phase_large_scene(device)
     large_rays = compacted_k1_inputs(large, cfg_t.camera, device)
     large_segs = k2_inputs(large, device, n_connect)
     k3 = phase_k3(large, large_rays, scene, bench_rays, info)
@@ -1555,15 +1907,27 @@ def main():
     k12 = {k: launches[k] for k in ("k1_closest_hit", "k2_any_hit")}
     add_launches(k12, phase_slice_sb4(scene, cam, device, smi, (fb, base)))
     del fb
-    launches.update({k: v for k, v in phase_slice_large(
-        large, cfg_t, device, smi).items() if k.startswith(("k3", "k4"))})
+    k34 = phase_slice_large(large, cfg_t, device, smi)
     phase_paths(device, large, cfg_t.camera)
+    add_launches(k34, phase_path(large, cfg_t.camera, device, smi,
+                                 name="large", kernel="k3",
+                                 spp=PATH_LARGE_SPP))
+    add_launches(k34, phase_misc(large, large_meta, cfg_t.camera, smi,
+                                 name="large", integrators=("ao",),
+                                 kernels=("k3", "k4")))
     del large
     torch.cuda.empty_cache()
     add_launches(k12, phase_slice_rr(device, smi))
     add_launches(k12, phase_modes(device, smi))
-    # The kernels line counts K1/K2 over every path that routes to them.
+    add_launches(k12, phase_path(scene, cam, device, smi))
+    add_launches(k12, phase_direct(scene, meta, cam, smi))
+    add_launches(k12, phase_misc(scene, meta, cam, smi))
+    add_launches(k12, phase_integrators_xest(device, smi))
+    phase_cli(smi)
+    # The kernels line counts K1-K4 over every path that routes to them.
     launches.update({k: k12[k] for k in ("k1_closest_hit", "k2_any_hit")})
+    launches.update({k: k34[k] for k in ("k3_closest_hit_stream",
+                                         "k4_any_hit_stream")})
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

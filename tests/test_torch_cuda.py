@@ -1,7 +1,9 @@
 """The CUDA kernels K1-K7 against their plain PyTorch versions on the
 card: bit-equal hits and equal occlusion flags; K3-K7 also against K1
 and K2; K1 and K2 also on the 923-treelet table, on the largest table
-they take and on edge batches.  These need an NVIDIA GPU with nvcc and
+they take and on edge batches; renders of BDPT and of every integrator
+of path.py, direct.py and misc.py through the kernels against renders
+through the plain versions.  These need an NVIDIA GPU with nvcc and
 skip without one; run them on the card with
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
@@ -147,6 +149,83 @@ def test_chunked_connect_through_the_kernels(cuda_scene, monkeypatch):
     cfg = bdpt.BDPTConfig(32, 32, spp=2, rr_depth=4)
     kernel, plain, k2 = _render_kernel_and_plain(cuda_scene, cfg)
     assert k2 == 2 * 4
+    _assert_agree(kernel, plain)
+
+
+@pytest.fixture(scope="module")
+def cuda_box():
+    """The glass box on the card with its SceneMeta, and a 32x32 camera."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from bpt_tpu_torch.scene.procedural import cornell_box_scene
+
+    return cornell_box_scene(32, 32, device="cuda",
+                             right_object="glass_sphere", sphere_subdiv=3)
+
+
+def _integrator_kernel_and_plain(box, render):
+    """`render(scene, meta, cam)` through K1/K2 and through their plain
+    versions (swapped into accel/api.py here only), with the K1 and K2
+    launches of the kernel render: ((img, nrays), (img, nrays), k1, k2)."""
+    from unittest import mock
+
+    from bpt_tpu_torch.accel import api
+    from bpt_tpu_torch.ops.trace_any import any_hit, any_hit_plain
+    from bpt_tpu_torch.ops.trace_closest import closest_hit, \
+        closest_hit_plain
+
+    k1, k2 = closest_hit.launches, any_hit.launches
+    kernel = render(*box)
+    k1, k2 = closest_hit.launches - k1, any_hit.launches - k2
+    with mock.patch.object(api, "closest_hit", closest_hit_plain), \
+            mock.patch.object(api, "any_hit", any_hit_plain):
+        plain = render(*box)
+    return kernel, plain, k1, k2
+
+
+def _path(**kw):
+    from bpt_tpu_torch.integrators.path import PathConfig, render_image_path
+
+    return lambda scene, meta, cam: render_image_path(
+        scene, cam, PathConfig(32, 32, spp=2, **kw), seed=1)
+
+
+def _direct(strategy):
+    from bpt_tpu_torch.integrators.direct import DirectConfig, \
+        render_image_direct
+
+    return lambda scene, meta, cam: render_image_direct(
+        scene, meta, cam, DirectConfig(32, 32, 2, strategy=strategy), seed=1)
+
+
+def _misc(integrator):
+    from bpt_tpu_torch.integrators.misc import MiscConfig, render_image_misc
+
+    return lambda scene, meta, cam: render_image_misc(
+        scene, meta, cam, MiscConfig(32, 32, 2, integrator=integrator),
+        seed=1)
+
+
+INTEGRATORS = {
+    "path": (_path, dict(max_bounces=8, rr_depth=3)),
+    "path_mis": (_path, dict(max_bounces=4, bsdf_samples=1)),
+    "path_implicit": (_path, dict(is_explicit=False, max_depth=4)),
+    **{f"direct_{s}": (_direct, s) for s in (
+        "area", "solidAngle", "cosineHemisphere", "bsdf", "mis")},
+    **{f"misc_{m}": (_misc, m) for m in ("normal", "simple", "ao", "ro")},
+}
+
+
+@pytest.mark.parametrize("name", list(INTEGRATORS))
+def test_integrator_renders_through_the_kernels(cuda_box, name):
+    """Each integrator of path.py, direct.py and misc.py renders through
+    K1 (and K2 where it traces occlusion) within the aggregate gate of
+    its render through the plain versions."""
+    make, arg = INTEGRATORS[name]
+    render = make(**arg) if isinstance(arg, dict) else make(arg)
+    kernel, plain, k1, k2 = _integrator_kernel_and_plain(cuda_box, render)
+    assert k1 > 0
+    assert (k2 > 0) == (name in ("misc_simple", "misc_ao", "misc_ro"))
     _assert_agree(kernel, plain)
 
 

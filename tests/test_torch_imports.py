@@ -66,13 +66,20 @@ def test_guard_sees_an_import(tmp_path):
 
 
 def test_scene_modules_load_without_the_jax_package():
-    """Importing the scene entry points and chip_smoke.py, in a fresh
-    interpreter, loads no module of bpt_tpu."""
+    """Importing the scene entry points, the integrators, the CLI with
+    its I/O and chip_smoke.py, in a fresh interpreter, loads no module of
+    bpt_tpu."""
     code = textwrap.dedent("""
         import sys
         import bpt_tpu_torch.scene.scene
         import bpt_tpu_torch.scene.export
         import bpt_tpu_torch.scene.procedural
+        import bpt_tpu_torch.integrators.path
+        import bpt_tpu_torch.integrators.direct
+        import bpt_tpu_torch.integrators.misc
+        import bpt_tpu_torch.io.exr
+        import bpt_tpu_torch.io.checkpoint
+        import bpt_tpu_torch.cli
         import chip_smoke
         leaked = [m for m in sys.modules
                   if m == "bpt_tpu" or m.startswith("bpt_tpu.")]
