@@ -8,8 +8,9 @@ scene file; the EXR is written next to the TOML with the same stem
 --checkpoint (resume), --preview, --seed, --spp-chunk, --out, and the
 bdpt switches --mode, --rr/--no-rr, --samples-per-batch.  --device
 (default cuda) picks the device; without a CUDA device the CLI raises
-unless it is given `--device cpu`.  Realtime scenes and --fly are not
-ported yet: they exit with code 1 and a message.
+unless it is given `--device cpu`.  A `realtime = true` scene runs the
+progressive frame loop of realtime.py (--frames; --fly drives the
+free-fly camera with a command script).
 """
 from __future__ import annotations
 
@@ -20,10 +21,6 @@ import time
 
 import numpy as np
 import torch
-
-REALTIME_NOT_PORTED = ("realtime scenes and --fly are not ported to "
-                       "bpt_tpu_torch yet (ROADMAP.md queue 1, item 14); "
-                       "render the scene with realtime = false")
 
 
 def _device(name: str) -> torch.device:
@@ -50,11 +47,10 @@ def main(argv=None):
     ap.add_argument("--checkpoint", default=None,
                     help="checkpoint file; resume if it exists")
     ap.add_argument("--frames", type=int, default=None,
-                    help="frame budget for realtime=true scenes (not "
-                         "ported yet)")
+                    help="frame budget for realtime=true scenes")
     ap.add_argument("--fly", default=None, metavar="CMDS",
                     help="free-fly camera command script for realtime "
-                         "scenes (not ported yet)")
+                         "scenes, e.g. 'ww.P+5;..a.' (core/flycam.py)")
     ap.add_argument("--preview", action="store_true",
                     help="write the EXR after every spp chunk (progressive "
                          "preview)")
@@ -89,9 +85,6 @@ def main(argv=None):
     from .scene.toml_config import load_toml
 
     cfg_t = load_toml(args.scene)
-    if cfg_t.realtime or args.fly is not None:
-        print(REALTIME_NOT_PORTED, file=sys.stderr)
-        return 1
 
     t_load = time.time()
     scene, meta = load_scene(cfg_t.obj_file, device)
@@ -100,6 +93,33 @@ def main(argv=None):
           f"({time.time() - t_load:.2f}s)")
 
     out_path = args.out or os.path.splitext(args.scene)[0] + ".exr"
+
+    if cfg_t.realtime:
+        # The progressive-refinement frame loop in place of the
+        # reference's SDL/GL loop (see realtime.py for the pass mapping).
+        from .realtime import run_interactive, run_realtime
+
+        t0 = time.time()
+        try:
+            if args.fly is not None:
+                _, poses = run_interactive(
+                    scene, meta, cfg_t, out_path, commands=args.fly,
+                    seed=args.seed)
+                frames = sum(n for n, _ in poses)
+                n_rays = 0
+            else:
+                _, frames, n_rays = run_realtime(
+                    scene, meta, cfg_t, out_path, seed=args.seed,
+                    frames=args.frames)
+        except ValueError as e:
+            print(str(e), file=sys.stderr)
+            return 1
+        wall = time.time() - t0
+        print(f"Render took: {wall:.2f} seconds ({frames} frames).")
+        print(f"Saved EXR image to {out_path}")
+        _write_meta(out_path, args, cfg_t, wall, n_rays, device,
+                    extra={"realtime": True, "frames": frames})
+        return 0
 
     t0 = time.time()
     n_rays = 0

@@ -192,6 +192,16 @@ def _continue_walk(lkeys, it, lane, rr_prob, throughput, vc, vcm, alive):
     return it.p, d_world, throughput, vc, vcm, alive_out, s.wi
 
 
+def _kept_weight(mis, ok):
+    """A detached MIS weight, zero on the lanes that `ok` rejects.  A
+    rejected lane's weight denominator can vanish (its cosines may be
+    negative), and 0 * inf in the backward of `value * weight` gives it a
+    NaN gradient although the forward drops the lane; the reference
+    multiplies first and masks after, so its gradient is NaN there.  The
+    forward is unchanged: the kept lanes get the same weight."""
+    return torch.where(ok, mis.detach(), torch.zeros_like(mis))
+
+
 def _visible(scene, start, end, needed=None, trace_vis=True):
     """visibilityQuery: True where the segment is OCCLUDED
     (reference: bdpt.h:498-514), ray [EPSILON, dist - VIS_SHORTEN].
@@ -247,8 +257,8 @@ def _connect_to_camera(cam_consts, cfg: BDPTConfig, it, lane, throughput,
 
     if cfg.mode == "bdpt":
         prev_rev_pdf = prev_rev * rr_prob
-        mis = mis_fn.weight_t1(image_to_surf, n_light, prev_rev_pdf, vc,
-                               vcm).detach()
+        mis = _kept_weight(mis_fn.weight_t1(image_to_surf, n_light,
+                                            prev_rev_pdf, vc, vcm), ok)
         radiance = radiance * mis[..., None]
 
     pixel = y_pix * w + x_pix
@@ -289,9 +299,9 @@ def _connect_to_light(scene, cfg: BDPTConfig, lkeys, it, lane, throughput,
         light_rev_pdf_w = pdf_f * rr_prob
         eye_prev_rev_pdf_w = pdf_r * rr_prob
         eye_cur_rev_pdf_a = cos_at_eye / dist2 * dir_pdf_w
-        mis = mis_fn.weight_s1(
+        mis = _kept_weight(mis_fn.weight_s1(
             light_rev_pdf_w, torch.clamp_min(connect_pdf_w, 1e-30),
-            eye_cur_rev_pdf_a, eye_prev_rev_pdf_w, vc, vcm).detach()
+            eye_cur_rev_pdf_a, eye_prev_rev_pdf_w, vc, vcm), ok)
         li = li * mis[..., None]
     return torch.where(ok[..., None], li, torch.zeros_like(li)), ok, es.pos
 
@@ -329,8 +339,9 @@ def _connect_vertices(lv_p, lv_frame, lv_wo, lv_thr, lv_vcm, lv_vc, lv_rr,
 
     light_rev_a = pdf_e2l * cos_l * inv_d2
     eye_rev_a = pdf_l2e * cos_e * inv_d2
-    mis = mis_fn.weight_connect(light_rev_a, pdf_l_prev, lv_vc, lv_vcm,
-                                eye_rev_a, pdf_e_prev, vc, vcm).detach()
+    mis = _kept_weight(mis_fn.weight_connect(
+        light_rev_a, pdf_l_prev, lv_vc, lv_vcm, eye_rev_a, pdf_e_prev, vc,
+        vcm), ok)
     li = li * mis[..., None]
     return torch.where(ok[..., None], li, torch.zeros_like(li)), ok
 

@@ -1,7 +1,8 @@
 """Bitmap textures: loading, the padded atlas, and the UV lookup (port
 of bpt_tpu/scene/textures.py).
 
-Loading and packing stay numpy on the host; `albedo_at` runs on the
+Loading, packing and the Texture<T> classes (`ConstantTexture3f/1f`,
+`BitmapTexture3f/1f`) stay numpy on the host; `albedo_at` runs on the
 device.  Semantics are the reference renderer's (src/core/core.h:405-640):
 `map_Kd` retargeted to a sibling .ppm, PPM gamma-expanded with 2.2, both
 formats v-flipped at load, nearest-texel lookup of the +1-wrapped
@@ -89,6 +90,119 @@ def build_atlas(images: List[np.ndarray]):
         atlas[n, :h, :w] = img
         sizes[n] = (h, w)
     return atlas, sizes
+
+
+# ---------------------------------------------------------------------------
+# Texture<T> interface parity (reference: core.h:405-640)
+# ---------------------------------------------------------------------------
+#
+# The reference exposes eval/getAverage/getMin/getMax on Constant and
+# Bitmap textures in both 3f and 1f flavors.  Only BitmapTexture3f's
+# eval is on the BDPT hot path (map_Kd, handled by albedo_at below);
+# the rest are host-side scene-description utilities, so they live here
+# as plain numpy classes (copies of bpt_tpu/scene/textures.py's).
+
+
+class ConstantTexture3f:
+    """(reference: core.h:503-513)"""
+
+    def __init__(self, value):
+        self.value = np.asarray(value, np.float32)
+
+    def eval(self, st=None):
+        return self.value
+
+    def average(self):
+        return self.value
+
+    def min(self):
+        return self.value
+
+    def max(self):
+        return self.value
+
+
+class ConstantTexture1f:
+    """(reference: core.h:515-525)"""
+
+    def __init__(self, value):
+        self.value = float(value)
+
+    def eval(self, st=None):
+        return self.value
+
+    def average(self):
+        return self.value
+
+    def min(self):
+        return self.value
+
+    def max(self):
+        return self.value
+
+
+class BitmapTexture3f:
+    """(reference: core.h:527-587).  img: (H, W, 3) float32 as produced
+    by load_texture (already gamma-expanded + v-flipped)."""
+
+    def __init__(self, img):
+        self.img = np.asarray(img, np.float32)
+
+    def eval(self, st):
+        """Nearest texel of the +1-wrapped UV (core.h:569-587)."""
+        st = np.asarray(st, np.float64) + 1.0
+        st = st - np.floor(st)
+        h, w = self.img.shape[:2]
+        x = int(np.clip(int(st[0] * w), 0, w - 1))
+        y = int(np.clip(int(st[1] * h), 0, h - 1))
+        return self.img[y, x]
+
+    def average(self):
+        return self.img.reshape(-1, 3).mean(0)
+
+    def min(self):
+        return self.img.reshape(-1, 3).min(0)
+
+    def max(self):
+        return self.img.reshape(-1, 3).max(0)
+
+
+class BitmapTexture1f:
+    """(reference: core.h:589-640).
+
+    Reference quirks replicated for parity: the stored texel array is
+    RGB-interleaved but eval indexes it FLAT at (w*y + x) — i.e. it
+    reads a red/green/blue component depending on position rather than
+    a proper single channel (core.h:631-637) — and getMin/getMax loop
+    over only the first size/3 entries (core.h:609-620); getAverage
+    averages ALL interleaved components (core.h:601-607).
+
+    Deliberately NOT replicated: the reference's accumulator-init quirk
+    (getMax starts at +FLT_MIN and getMin at FLT_MAX, core.h:610,616; the
+    3f getMax starts at -FLT_MIN), which only shows through for all-zero
+    or all-negative textures — min()/max() here return the true extrema
+    of the scanned range instead."""
+
+    def __init__(self, img):
+        self.img = np.asarray(img, np.float32)
+        self._flat = self.img.reshape(-1)
+
+    def eval(self, st):
+        st = np.asarray(st, np.float64) + 1.0
+        st = st - np.floor(st)
+        h, w = self.img.shape[:2]
+        x = int(np.clip(int(st[0] * w), 0, w - 1))
+        y = int(np.clip(int(st[1] * h), 0, h - 1))
+        return float(self._flat[w * y + x])
+
+    def average(self):
+        return float(self._flat.mean())
+
+    def min(self):
+        return float(self._flat[: self._flat.size // 3].min())
+
+    def max(self):
+        return float(self._flat[: self._flat.size // 3].max())
 
 
 def albedo_at(scene, tri, u, v):

@@ -63,6 +63,27 @@ The other integrators and the command-line renderer run K1-K4 too:
     scene files: bdpt with --checkpoint and then resumed, path, direct
     (mis) and ao, each EXR read back and its meta.json naming the card.
 
+Differentiation and the realtime loop run them as well:
+
+  * `grad`: tests/test_grad.py's checks on the glass box at 64x64 (4
+    spp, rr_depth 3, chunks of 2) through K1/K2: every material field's
+    gradient finite in bdpt, path_trace, light_trace and Russian-roulette
+    mode and held to the gradient through the plain versions within 1e-4
+    of its norm, autograd against central finite differences (eps 1e-2)
+    on diffuse[0,0] and emission[5,1]; the forward and backward walls
+    and peak memory of a bench chunk (256x256, rr8, 2 samples in one
+    batch); `grad_large`: the same hold to the plain versions on the
+    large scene (64x64, 1 spp) through K3/K4;
+  * `inverse`: BASELINE config #5 (probes/inverse_recover.py: 1024x1024,
+    spp 2, rr_depth 2) for 10 iterations of recover_materials: losses,
+    step time, peak memory and one profiled step; the loss must fall and
+    every gradient be finite;
+  * `realtime`: realtime.py's run_realtime for the normal, simple, ssao
+    and gi passes at 256x256 (ms a frame, frames/s, launches a frame),
+    simple held to its frames through the plain versions (0 pixels off),
+    run_interactive with a fly script, and one `python -m
+    bpt_tpu_torch.cli` process on a realtime = true scene file.
+
 Each kernel's launch count is reset just before each path runs and read
 just after; the kernels line sums them over the paths.  A small render
 through the kernels is compared with one through the plain versions on
@@ -123,6 +144,9 @@ BENCH_CHUNK = 8
 DEAD_FRAC_K1 = 0.10
 LIVE_FRAC_K2 = 0.30
 REPS = 5
+# The device kernels outside the trace kernels and sorts that a profile
+# names, by their summed time.
+PROFILE_TOP = 6
 # The large scene's rays per chunk in the K3/K4 render before their
 # redesign (the script's run on an H100 at commit be61a0e); the
 # redesigned K3 visits treelets in another order, which may change the
@@ -911,6 +935,7 @@ def _profile_run(run, batch_wall_s):
         wall = time.perf_counter() - t0
     groups = {g: 0.0 for g, _ in _KERNEL_GROUPS}
     groups.update(sort=0.0, other=0.0)
+    others = {}
     # The raw device events (kernels, copies, fills), not key_averages(),
     # which first builds a Python object for every event of the run: 38-46
     # s for one path tracer sample on an H100.
@@ -923,6 +948,8 @@ def _profile_run(run, batch_wall_s):
             low = name.lower()
             group = "sort" if "sort" in low or "radix" in low else "other"
         groups[group] += ev.duration_ns() / 1e3
+        if group == "other":
+            others[name] = others.get(name, 0.0) + ev.duration_ns() / 1e9
     processing_s = time.perf_counter() - t_all - wall
     total = sum(groups.values())
     if total == 0.0:
@@ -933,7 +960,9 @@ def _profile_run(run, batch_wall_s):
             "profile_wall_s": wall,
             "device_idle_share_profiled": max(0.0, 1.0 - busy / wall),
             "profile_processing_s": processing_s,
-            "device_s_by_group": {k: v / 1e6 for k, v in groups.items()}}
+            "device_s_by_group": {k: v / 1e6 for k, v in groups.items()},
+            "top_other_s": dict(sorted(others.items(), key=lambda kv: -kv[1])
+                                [:PROFILE_TOP])}
 
 
 def _identity_layout(o, d, min_t, max_t, bounds=None, kind="segment"):
@@ -1769,22 +1798,57 @@ def phase_integrators_xest(device, smi):
     return launches
 
 
+def run_cli(case, toml_path, *args):
+    """`python -m bpt_tpu_torch.cli toml_path *args` in a subprocess: it
+    must exit 0, its EXR (beside the scene file) must be finite, square at
+    the scene's width and not black, and its meta.json must name the card
+    and one device.  Returns (image, stdout, the run's line)."""
+    import numpy as np
+
+    from bpt_tpu_torch.io.exr import read_exr
+    from bpt_tpu_torch.scene.toml_config import load_toml
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    card = torch.cuda.get_device_name(0)
+    w = load_toml(toml_path).width
+    tw = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "bpt_tpu_torch.cli", toml_path, *args],
+        cwd=repo, env=dict(os.environ, PYTHONPATH=repo), capture_output=True,
+        text=True, timeout=CLI["timeout_s"])
+    wall = time.perf_counter() - tw
+    if run.returncode != 0:
+        raise AssertionError(f"cli {case} exited {run.returncode}: "
+                             f"{run.stderr[-2000:]}")
+    exr = os.path.splitext(toml_path)[0] + ".exr"
+    img = read_exr(exr)
+    with open(exr + ".meta.json") as f:
+        meta = json.load(f)
+    line = {"process_s": wall, "render_s": meta["wall_s"],
+            "rays": meta["rays"], "rays_per_s": meta["rays_per_sec"],
+            "image_mean": float(img.mean()), "device": meta["device"],
+            "frames": meta.get("frames"),
+            "stdout_tail": run.stdout.strip()[-300:]}
+    if img.shape != (w, w, 3) or not np.isfinite(img).all() \
+            or img.mean() <= 0.0:
+        raise AssertionError(f"cli {case}: bad image {img.shape}")
+    if meta["device"] != card or meta["n_devices"] != 1:
+        raise AssertionError(f"cli {case}: meta names {meta['device']!r}, "
+                             f"the card {card!r}")
+    return img, run.stdout, line
+
+
 def phase_cli(smi):
     """`python -m bpt_tpu_torch.cli` in a subprocess on scene files written
     by export_cornell_box (the glass box, 512x512): bdpt with
     --checkpoint, then resumed from the finished checkpoint (the same
     image, no sample rendered); path (the scene file's defaults); direct
-    with samplingStrategy = "mis"; ao.  Each EXR is read back: finite,
-    512x512, not black, and its meta.json names the card."""
+    with samplingStrategy = "mis"; ao, each checked by run_cli."""
     import numpy as np
 
-    from bpt_tpu_torch.io.exr import read_exr
     from bpt_tpu_torch.scene.export import export_cornell_box
 
     t0 = time.perf_counter()
-    repo = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=repo)
-    card = torch.cuda.get_device_name(0)
     w = CLI["width"]
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1798,32 +1862,8 @@ def phase_cli(smi):
             return path
 
         def cli(case, toml_path, *args):
-            tw = time.perf_counter()
-            run = subprocess.run(
-                [sys.executable, "-m", "bpt_tpu_torch.cli", toml_path,
-                 *args], cwd=repo, env=env, capture_output=True, text=True,
-                timeout=CLI["timeout_s"])
-            wall = time.perf_counter() - tw
-            if run.returncode != 0:
-                raise AssertionError(f"cli {case} exited {run.returncode}: "
-                                     f"{run.stderr[-2000:]}")
-            exr = os.path.splitext(toml_path)[0] + ".exr"
-            img = read_exr(exr)
-            with open(exr + ".meta.json") as f:
-                meta = json.load(f)
-            runs[case] = {"process_s": wall, "render_s": meta["wall_s"],
-                          "rays": meta["rays"],
-                          "rays_per_s": meta["rays_per_sec"],
-                          "image_mean": float(img.mean()),
-                          "device": meta["device"],
-                          "stdout_tail": run.stdout.strip()[-200:]}
-            if img.shape != (w, w, 3) or not np.isfinite(img).all() \
-                    or img.mean() <= 0.0:
-                raise AssertionError(f"cli {case}: bad image {img.shape}")
-            if meta["device"] != card or meta["n_devices"] != 1:
-                raise AssertionError(f"cli {case}: meta names "
-                                     f"{meta['device']!r}, the card {card!r}")
-            return img, run.stdout
+            img, stdout, runs[case] = run_cli(case, toml_path, *args)
+            return img, stdout
 
         bdpt = scene_file("bdpt", "bdpt", CLI["bdpt_spp"])
         ck = os.path.join(tmp, "bdpt.ckpt")
@@ -1841,6 +1881,350 @@ def phase_cli(smi):
     emit({"phase": "cli", "config": f"python -m bpt_tpu_torch.cli, glass box "
           f"{w}x{w} scene files, seed 0", "nvidia_smi": smi, "runs": runs},
          t0)
+
+
+# tests/test_grad.py's checks on the card (phase grad): the glass box at
+# 64x64, 4 spp, rr_depth 3, gradients of 2-sample chunks at key 11; the
+# large scene at 64x64, 1 spp; the bench settings' 2-sample chunk (one
+# batch of 2 samples) for the backward pass's wall and memory.
+GRAD = dict(width=64, spp=4, rr_depth=3, spp_chunk=2, seed=11,
+            large_spp=1, fd_eps=1e-2, rel_to_plain=1e-4)
+GRAD_MODES = {"bdpt": {}, "path_trace": dict(mode="path_trace"),
+              "light_trace": dict(mode="light_trace"),
+              "rr": dict(no_rr=False, rr_depth=2, max_bounces=6)}
+# (field, index): the floor's red albedo, the light's green emission.
+GRAD_FD = (("diffuse", (0, 0)), ("emission", (5, 1)))
+# BASELINE config #5 (probes/inverse_recover.py) for a few iterations.
+INVERSE = dict(res=1024, iters=10, spp=2, lr=0.2)
+# The realtime passes at 256x256: frames a pass (gi runs the path tracer
+# with a scene file's defaults, seconds a frame), and the fly script.
+REALTIME = dict(width=256, frames=16, gi_frames=3, plain_frames=2,
+                fly="..w..H+4;.P-3;..", cli_frames=4)
+
+
+def _grad_case(scene, cc, cfg, key, spp_chunk, routes, used):
+    """loss_and_grad through the kernels (launch counts reset just before
+    and read just after, checked against `used`) and through the plain
+    versions `routes`; each field's gradient held to the plain one within
+    GRAD["rel_to_plain"] of its norm.  Returns (the case's line, its
+    launches, the kernels' (loss, grads))."""
+    from unittest import mock
+
+    import numpy as np
+
+    from bpt_tpu_torch.accel import api
+    from bpt_tpu_torch.diff.grad import extract_params, loss_and_grad
+
+    params = extract_params(scene)
+    target = torch.zeros((cfg.width * cfg.height, 3), device=cc["o"].device)
+    (loss, g), _, wall, launches, plain_calls, peak = counted(
+        lambda: (loss_and_grad(params, scene, cc, cfg, key, spp_chunk,
+                               target), 0))
+    with mock.patch.multiple(api, **routes):
+        loss_p, g_p = loss_and_grad(params, scene, cc, cfg, key, spp_chunk,
+                                    target)
+    rel = {}
+    for f, v in g.items():
+        norm = float(torch.linalg.vector_norm(g_p[f].double()))
+        diff = float(torch.linalg.vector_norm((v - g_p[f]).double()))
+        rel[f] = diff / norm if norm > 0.0 else diff
+    out = {"loss": float(loss), "loss_plain": float(loss_p),
+           "grad_norm": {f: float(torch.linalg.vector_norm(v.double()))
+                         for f, v in g.items()},
+           "grad_rel_to_plain": rel, "wall_s": wall, "peak_mem_bytes": peak,
+           "launches": launches, "plain_calls_on_cuda": plain_calls,
+           "finite": bool(np.isfinite(float(loss))) and all(
+               bool(torch.isfinite(v).all()) for v in g.values())}
+    if not out["finite"] or plain_calls:
+        raise AssertionError(f"grad: non-finite or plain calls {out}")
+    if min(launches[k] for k in used) <= 0 or any(
+            n for k, n in launches.items() if k not in used):
+        raise AssertionError(f"grad: launched {launches}, expected {used}")
+    if max(rel.values()) > GRAD["rel_to_plain"]:
+        raise AssertionError(f"grad: kernels and plain versions disagree "
+                             f"{rel}")
+    if out["grad_norm"]["emission"] <= 0.0:
+        raise AssertionError("grad: no emission gradient")
+    return out, launches, (loss, g)
+
+
+def phase_grad_large(large, cam_large, device, smi):
+    """Gradients of a 1-spp render of the large scene at 64x64 through K3
+    and K4, held to the same through their plain versions."""
+    from bpt_tpu_torch.core import rng
+    from bpt_tpu_torch.core.camera import Camera
+    from bpt_tpu_torch.integrators.bdpt import BDPTConfig
+
+    t0 = time.perf_counter()
+    w = GRAD["width"]
+    cam = Camera.make(cam_large.o, cam_large.at, cam_large.up,
+                      cam_large.fov, w, w)
+    cfg = BDPTConfig(w, w, spp=GRAD["large_spp"], rr_depth=GRAD["rr_depth"])
+    out, launches, _ = _grad_case(
+        large, cam.device_constants(device), cfg, rng.key(GRAD["seed"],
+                                                          device),
+        GRAD["large_spp"], _plain_routes("k3", "k4"),
+        ("k3_closest_hit_stream", "k4_any_hit_stream"))
+    emit({"phase": "grad_large", "config": f"large scene {w}x{w} "
+          f"{cfg.spp}spp rr{cfg.rr_depth} seed{GRAD['seed']}",
+          "nvidia_smi": smi, **out}, t0)
+    return launches
+
+
+def _bench_backward(scene, cam, device):
+    """Forward and backward of one 2-sample chunk at the bench settings
+    (256x256, rr_depth 8, both samples in one batch): walls and peak
+    memory, with the same chunk's forward without autograd beside
+    them."""
+    from bpt_tpu_torch.core import rng
+    from bpt_tpu_torch.diff.grad import apply_params, extract_params
+    from bpt_tpu_torch.integrators.bdpt import BDPTConfig, render_chunk
+
+    cfg = BDPTConfig(BENCH["width"], BENCH["height"], spp=BENCH["spp"],
+                     rr_depth=BENCH["rr_depth"])
+    cc = cam.device_constants(device)
+    key = rng.key(SEED, device)
+    n = BENCH["sb"]
+    target = torch.zeros((cfg.width * cfg.height, 3), device=device)
+
+    def step():
+        leaves = {f: p.detach().requires_grad_(True)
+                  for f, p in extract_params(scene).items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        tw = time.perf_counter()
+        fb, _ = render_chunk(apply_params(scene, leaves), cc, cfg, key, n,
+                             samples_per_batch=n)
+        loss = torch.mean((fb * (cfg.spp / n) - target) ** 2)
+        torch.cuda.synchronize()
+        t_fwd = time.perf_counter() - tw
+        peak_fwd = torch.cuda.max_memory_allocated()
+        tw = time.perf_counter()
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
+        torch.cuda.synchronize()
+        t_bwd = time.perf_counter() - tw
+        launches, _ = read_counts()
+        return {"forward_s": t_fwd, "backward_s": t_bwd,
+                "peak_mem_bytes_after_forward": peak_fwd,
+                "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                "launches": launches,
+                "finite": all(g is None or bool(torch.isfinite(g).all())
+                              for g in grads)}
+
+    def forward_only():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tw = time.perf_counter()
+        render_chunk(scene, cc, cfg, key, n, samples_per_batch=n)
+        torch.cuda.synchronize()
+        return {"forward_no_grad_s": time.perf_counter() - tw,
+                "peak_mem_bytes_no_grad": torch.cuda.max_memory_allocated()}
+
+    step()
+    out = {**step(), **forward_only(),
+           "config": f"bench scene {cfg.width}x{cfg.height} chunk of {n} "
+                     f"samples in one batch, rr{cfg.rr_depth}"}
+    torch.cuda.empty_cache()
+    if not out["finite"]:
+        raise AssertionError(f"grad bench: non-finite gradients {out}")
+    return out
+
+
+def phase_grad(scene, cam, device, smi):
+    """tests/test_grad.py's checks through K1/K2 on the glass box at
+    64x64: finite gradients in every mode and with Russian roulette, each
+    field's gradient held to the plain routes', autograd against central
+    finite differences at common random numbers (eps 1e-2, rtol 0.05,
+    atol 1e-4); then the bench chunk's backward pass."""
+    import numpy as np
+
+    from bpt_tpu_torch.core import rng
+    from bpt_tpu_torch.diff.grad import extract_params, \
+        finite_difference_check
+    from bpt_tpu_torch.integrators.bdpt import BDPTConfig
+    from bpt_tpu_torch.scene.procedural import cornell_box_scene
+
+    t0 = time.perf_counter()
+    w, chunk = GRAD["width"], GRAD["spp_chunk"]
+    box, _, box_cam = cornell_box_scene(w, w, device=device,
+                                        right_object="glass_sphere",
+                                        sphere_subdiv=3)
+    cc = box_cam.device_constants(device)
+    key = rng.key(GRAD["seed"], device)
+    used = ("k1_closest_hit", "k2_any_hit")
+    cases, launches = {}, {}
+    for mode, change in GRAD_MODES.items():
+        cfg = BDPTConfig(w, w, **{"spp": GRAD["spp"],
+                                  "rr_depth": GRAD["rr_depth"], **change})
+        cases[mode], ln, lg = _grad_case(box, cc, cfg, key, chunk,
+                                         _plain_routes("k1", "k2"), used)
+        add_launches(launches, ln)
+        if mode == "bdpt":
+            cfg_bdpt, (_, g_bdpt) = cfg, lg
+    params = extract_params(box)
+    target = torch.zeros((w * w, 3), device=device)
+    fd = {}
+    for field, idx in GRAD_FD:
+        d, _, _, ln, plain_calls, _ = counted(lambda: (
+            finite_difference_check(params, box, cc, cfg_bdpt, key, chunk,
+                                    target, field, idx, eps=GRAD["fd_eps"]),
+            0))
+        add_launches(launches, ln)
+        ad = float(g_bdpt[field][idx])
+        fd[f"{field}{list(idx)}"] = {"fd": float(d), "autograd": ad}
+        if plain_calls or not np.isclose(float(d), ad, rtol=0.05,
+                                         atol=1e-4):
+            raise AssertionError(f"grad: FD {float(d)} against autograd "
+                                 f"{ad} on {field}{idx}")
+    bench = _bench_backward(scene, cam, device)
+    add_launches(launches, bench["launches"])
+    emit({"phase": "grad", "config": f"glass cbox {w}x{w} spp "
+          f"{GRAD['spp']} rr{GRAD['rr_depth']} chunks of {chunk} seed "
+          f"{GRAD['seed']}", "nvidia_smi": smi, "modes": cases,
+          "finite_difference": fd, "bench_chunk": bench}, t0)
+    return launches
+
+
+def phase_inverse(device, smi):
+    """BASELINE config #5 (probes/inverse_recover.py: 1024x1024, spp 2,
+    rr_depth 2, lr 0.2, from albedo 0.5 and emission x0.3) for
+    INVERSE["iters"] iterations of recover_materials through K1/K2: the
+    losses, step time, peak memory and one profiled step.  The probe
+    raises unless the last loss is below the first and every gradient is
+    finite."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "probes"))
+    import inverse_recover
+
+    t0 = time.perf_counter()
+    (report, _, wall, launches, plain_calls, _) = counted(
+        lambda: (inverse_recover.run(device=device, profile=_profile_run,
+                                     **INVERSE), 0))
+    if plain_calls or min(launches["k1_closest_hit"],
+                          launches["k2_any_hit"]) <= 0 or any(
+            n for k, n in launches.items()
+            if k not in ("k1_closest_hit", "k2_any_hit")):
+        raise AssertionError(f"inverse launched {launches}, plain calls "
+                             f"{plain_calls}")
+    emit({"phase": "inverse", "nvidia_smi": smi, "wall_s": wall,
+          "launches": launches, **report}, t0)
+    return launches
+
+
+def phase_realtime(scene, meta, cam, device, smi):
+    """realtime.py's frame loop on the bench scene at 256x256: each pass
+    (normal, simple, ssao, gi) for a run of frames with real EXR writes,
+    ms a frame and frames/s, K1/K2 launches a frame; the simple pass held
+    to its frames through the plain versions (0 pixels off); the fly
+    script through run_interactive; then one `python -m
+    bpt_tpu_torch.cli` process on a realtime = true scene file."""
+    from unittest import mock
+
+    import numpy as np
+
+    from bpt_tpu_torch import realtime
+    from bpt_tpu_torch.accel import api
+    from bpt_tpu_torch.core.camera import Camera
+    from bpt_tpu_torch.io.exr import read_exr, write_exr
+    from bpt_tpu_torch.scene.export import export_cornell_box
+    from bpt_tpu_torch.scene.toml_config import RenderConfig
+
+    t0 = time.perf_counter()
+    w = REALTIME["width"]
+    cam_w = Camera.make(cam.o, cam.at, cam.up, cam.fov, w, w)
+
+    def config(pass_type, frames):
+        return RenderConfig(toml_file="<chip_smoke>", obj_file="<procedural>",
+                            camera=cam_w, width=w, height=w, spp=frames,
+                            integrator=pass_type, realtime=True)
+
+    expect = {"normal": {"k1_closest_hit": 1},
+              "simple": {"k1_closest_hit": 1, "k2_any_hit": 1},
+              "ssao": {"k1_closest_hit": 1, "k2_any_hit": 1},
+              "gi": {"k1_closest_hit": (2, PATH_K1_MAX)}}
+    passes, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "realtime.exr")
+        stamps = []
+
+        def stamped_write(path, img):
+            write_exr(path, img)
+            stamps.append(time.perf_counter())
+
+        def frames_run(render):
+            stamps.clear()
+            tw = time.perf_counter()
+            img, _, _, ln, plain_calls, peak = counted(
+                lambda: (render(), 0))
+            ms = np.diff([tw] + stamps) * 1e3
+            return img, ln, plain_calls, peak, ms
+
+        for pass_type, want in expect.items():
+            n = REALTIME["gi_frames" if pass_type == "gi" else "frames"]
+            (img, frames, nrays), ln, plain_calls, peak, ms = frames_run(
+                lambda: realtime.run_realtime(
+                    scene, meta, config(pass_type, n), out_path, seed=SEED,
+                    write_exr=stamped_write))
+            steady = ms[1:] if len(ms) > 1 else ms
+            passes[pass_type] = {
+                "frames": frames, "nrays": nrays,
+                "ms_per_frame": float(np.median(steady)),
+                "fps": 1e3 / float(np.median(steady)),
+                "first_frame_ms": float(ms[0]), "peak_mem_bytes": peak,
+                "launches_per_frame": {k: v / frames for k, v in ln.items()
+                                       if v},
+                "image_mean": float(img.double().mean())}
+            add_launches(launches, ln)
+            bad = (plain_calls or frames != n or len(ms) != n
+                   or not bool(torch.isfinite(img).all())
+                   or read_exr(out_path).shape != (w, w, 3))
+            for k, v in ln.items():
+                lo, hi = ((want[k], want[k]) if isinstance(want.get(k), int)
+                          else want.get(k, (0, 0)))
+                bad = bad or not lo <= v / frames <= hi
+            if bad:
+                raise AssertionError(f"realtime {pass_type}: "
+                                     f"{passes[pass_type]} {ln}")
+        # The simple pass through the plain versions: the same frames.
+        n = REALTIME["plain_frames"]
+        a, _, _ = realtime.run_realtime(scene, meta, config("simple", n),
+                                        out_path, seed=SEED)
+        with mock.patch.multiple(api, **_plain_routes("k1", "k2")):
+            b, _, _ = realtime.run_realtime(scene, meta, config("simple", n),
+                                            out_path, seed=SEED)
+        off = image_agreement(a, 0, b, 0)["pixels_off_frac"]
+        passes["simple_vs_plain"] = {"frames": n, "pixels_off_frac": off}
+        if off != 0.0:
+            raise AssertionError(f"realtime simple: {off} of the pixels "
+                                 f"off the plain render")
+        # The fly script.
+        (img, poses), ln, plain_calls, peak, ms = frames_run(
+            lambda: realtime.run_interactive(
+                scene, meta, config("simple", 1), out_path,
+                REALTIME["fly"], seed=SEED, write_exr=stamped_write))
+        add_launches(launches, ln)
+        passes["fly"] = {"script": REALTIME["fly"],
+                         "frames_per_pose": [p for p, _ in poses],
+                         "ms_per_frame": float(np.median(ms[1:])),
+                         "launches": ln}
+        if plain_calls or len(ms) != REALTIME["fly"].count(".") or \
+                [p for p, _ in poses] != [2, 1, 1, 1, 1, 1] or \
+                not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"realtime fly: {passes['fly']}")
+        # The command line on a realtime scene file.
+        toml_path = export_cornell_box(
+            os.path.join(tmp, "rt"), width=w, height=w, spp=8,
+            integrator="ssao", right_object="glass_sphere", sphere_subdiv=3,
+            realtime=True)
+        _, _, passes["cli"] = run_cli("realtime", toml_path, "--frames",
+                                      str(REALTIME["cli_frames"]))
+        if passes["cli"]["frames"] != REALTIME["cli_frames"]:
+            raise AssertionError(f"cli realtime: {passes['cli']}")
+    emit({"phase": "realtime", "config": f"bench scene {w}x{w}, one sample "
+          f"a frame, seed {SEED}", "nvidia_smi": smi, "passes": passes}, t0)
+    return launches
 
 
 def main():
@@ -1915,6 +2299,7 @@ def main():
     add_launches(k34, phase_misc(large, large_meta, cfg_t.camera, smi,
                                  name="large", integrators=("ao",),
                                  kernels=("k3", "k4")))
+    add_launches(k34, phase_grad_large(large, cfg_t.camera, device, smi))
     del large
     torch.cuda.empty_cache()
     add_launches(k12, phase_slice_rr(device, smi))
@@ -1924,6 +2309,9 @@ def main():
     add_launches(k12, phase_misc(scene, meta, cam, smi))
     add_launches(k12, phase_integrators_xest(device, smi))
     phase_cli(smi)
+    add_launches(k12, phase_grad(scene, cam, device, smi))
+    add_launches(k12, phase_inverse(device, smi))
+    add_launches(k12, phase_realtime(scene, meta, cam, device, smi))
     # The kernels line counts K1-K4 over every path that routes to them.
     launches.update({k: k12[k] for k in ("k1_closest_hit", "k2_any_hit")})
     launches.update({k: k34[k] for k in ("k3_closest_hit_stream",

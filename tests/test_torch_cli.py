@@ -1,8 +1,8 @@
 """The port's command-line renderer (`python -m bpt_tpu_torch.cli`) on the
 CPU (`--device cpu`): the non-realtime tests of tests/test_cli.py on the
 port, each integrator's EXR equal to the port's render function at the
-same seed, and the refusals (realtime scenes and --fly, a CUDA device
-that is not there)."""
+same seed, and the refusal of a CUDA device that is not there.  The
+realtime tests are in tests/test_torch_realtime.py."""
 from __future__ import annotations
 
 import json
@@ -234,18 +234,6 @@ def test_toml_bdpt_ablation_keys(tmp_path):
     assert cfg.bdpt_mode == "path_trace"
     assert cfg.no_rr is False
     assert cfg.samples_per_batch == 2
-
-
-@pytest.mark.parametrize("how", ["realtime", "fly"])
-def test_cli_refuses_realtime(tmp_path, capsys, how):
-    toml_path = _scene(tmp_path, integrator="normal",
-                       realtime=how == "realtime")
-    args = [toml_path, "--out", str(tmp_path / "x.exr")] + CPU
-    if how == "fly":
-        args += ["--fly", "w.."]
-    assert cli_main(args) == 1
-    assert "item 14" in capsys.readouterr().err
-    assert not os.path.exists(tmp_path / "x.exr")
 
 
 def test_cli_module_needs_a_gpu_or_the_cpu_flag(tmp_path):

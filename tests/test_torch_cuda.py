@@ -3,8 +3,11 @@ card: bit-equal hits and equal occlusion flags; K3-K7 also against K1
 and K2; K1 and K2 also on the 923-treelet table, on the largest table
 they take and on edge batches; renders of BDPT and of every integrator
 of path.py, direct.py and misc.py through the kernels against renders
-through the plain versions.  These need an NVIDIA GPU with nvcc and
-skip without one; run them on the card with
+through the plain versions; gradients through K1/K2 against central
+finite differences and against the plain versions' gradients; each
+realtime pass through the kernels against the plain versions.  These
+need an NVIDIA GPU with nvcc and skip without one; run them on the card
+with
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 """
@@ -227,6 +230,76 @@ def test_integrator_renders_through_the_kernels(cuda_box, name):
     assert k1 > 0
     assert (k2 > 0) == (name in ("misc_simple", "misc_ao", "misc_ro"))
     _assert_agree(kernel, plain)
+
+
+@pytest.mark.parametrize("field,idx", [("diffuse", (0, 0)),
+                                       ("emission", (5, 1))])
+def test_gradient_through_the_kernels(cuda_box, field, idx):
+    """tests/test_grad.py's finite-difference check at 32x32 through K1
+    and K2 (eps 1e-2, rtol 0.05, atol 1e-4), and every field's gradient
+    within 1e-4 of its norm of the gradient through the plain versions."""
+    from unittest import mock
+
+    from bpt_tpu_torch.accel import api
+    from bpt_tpu_torch.core import rng
+    from bpt_tpu_torch.diff.grad import extract_params, \
+        finite_difference_check, loss_and_grad
+    from bpt_tpu_torch.integrators.bdpt import BDPTConfig
+    from bpt_tpu_torch.ops.trace_any import any_hit, any_hit_plain
+    from bpt_tpu_torch.ops.trace_closest import closest_hit, \
+        closest_hit_plain
+
+    scene, _, cam = cuda_box
+    cc = cam.device_constants("cuda")
+    cfg = BDPTConfig(32, 32, spp=4, rr_depth=3)
+    key = rng.key(11, "cuda")
+    params = extract_params(scene)
+    target = torch.zeros((32 * 32, 3), device="cuda")
+    k1, k2 = closest_hit.launches, any_hit.launches
+    loss, g = loss_and_grad(params, scene, cc, cfg, key, 2, target)
+    assert closest_hit.launches > k1 and any_hit.launches > k2
+    with mock.patch.object(api, "closest_hit", closest_hit_plain), \
+            mock.patch.object(api, "any_hit", any_hit_plain):
+        _, g_plain = loss_and_grad(params, scene, cc, cfg, key, 2, target)
+    for f, v in g.items():
+        assert torch.isfinite(v).all()
+        assert float(torch.linalg.vector_norm(v - g_plain[f])) <= \
+            1e-4 * float(torch.linalg.vector_norm(g_plain[f]))
+    fd = float(finite_difference_check(params, scene, cc, cfg, key, 2,
+                                       target, field, idx, eps=1e-2))
+    ad = float(g[field][idx])
+    assert abs(fd - ad) <= 1e-4 + 0.05 * abs(ad), (fd, ad)
+
+
+@pytest.mark.parametrize("pass_type", ["normal", "simple", "ssao", "gi"])
+def test_realtime_pass_through_the_kernels(cuda_box, pass_type):
+    """Two frames of each realtime pass through K1/K2 equal the same
+    frames through the plain versions, pixel for pixel."""
+    from unittest import mock
+
+    from bpt_tpu_torch import realtime
+    from bpt_tpu_torch.accel import api
+    from bpt_tpu_torch.ops.trace_any import any_hit_plain
+    from bpt_tpu_torch.ops.trace_closest import closest_hit, \
+        closest_hit_plain
+    from bpt_tpu_torch.scene.toml_config import RenderConfig
+
+    scene, meta, cam = cuda_box
+    cfg_t = RenderConfig(toml_file="<test>", obj_file="<proc>", camera=cam,
+                         width=32, height=32, spp=2, integrator=pass_type,
+                         realtime=True, rr_depth=3)
+    k1 = closest_hit.launches
+    a, frames, na = realtime.run_realtime(scene, meta, cfg_t, "unused.exr",
+                                          seed=2, write_exr=lambda *_: None)
+    assert frames == 2 and closest_hit.launches >= k1 + 2
+    assert a.device.type == "cuda" and torch.isfinite(a).all()
+    with mock.patch.object(api, "closest_hit", closest_hit_plain), \
+            mock.patch.object(api, "any_hit", any_hit_plain):
+        b, _, nb = realtime.run_realtime(scene, meta, cfg_t, "unused.exr",
+                                         seed=2, write_exr=lambda *_: None)
+    assert na == nb
+    off = (a - b).abs() > 1e-3 * torch.clamp_min(b.abs(), 1e-3)
+    assert not bool(off.any())
 
 
 @pytest.fixture(scope="module")

@@ -1,8 +1,8 @@
 """The port stands alone: no module of bpt_tpu_torch/ and nothing in
-chip_smoke.py or probes/ imports the JAX package bpt_tpu, directly or through
-another module, and the port's copies of the reference's numpy host
-modules (BVH builder, treelet cut, OBJ parser) give arrays equal to the
-reference's."""
+chip_smoke.py or probes/ imports jax or the JAX package bpt_tpu, directly
+or through another module, and the port's copies of the reference's
+numpy host modules (BVH builder, treelet cut, OBJ parser, free-fly
+camera, Texture<T> classes) give arrays equal to the reference's."""
 from __future__ import annotations
 
 import ast
@@ -30,9 +30,9 @@ PORT_FILES = sorted((REPO / "bpt_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"] + sorted((REPO / "probes").glob("*.py"))
 
 
-def _imports_jax_package(path: Path):
-    """(line, statement) of every import of bpt_tpu (not bpt_tpu_torch)
-    in the file."""
+def _imports_jax_package(path: Path, package: str = "bpt_tpu"):
+    """(line, statement) of every import of `package` (bpt_tpu, not
+    bpt_tpu_torch, by default) in the file."""
     bad = []
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
@@ -42,7 +42,7 @@ def _imports_jax_package(path: Path):
         else:
             continue
         for name in names:
-            if name == "bpt_tpu" or name.startswith("bpt_tpu."):
+            if name == package or name.startswith(package + "."):
                 bad.append((node.lineno, name))
     return bad
 
@@ -51,6 +51,12 @@ def _imports_jax_package(path: Path):
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_import_of_the_jax_package(path):
     assert _imports_jax_package(path) == []
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_import_of_jax(path):
+    assert _imports_jax_package(path, "jax") == []
 
 
 def test_guard_sees_an_import(tmp_path):
@@ -63,14 +69,20 @@ def test_guard_sees_an_import(tmp_path):
     assert _imports_jax_package(probe) == [(1, "bpt_tpu.scene"),
                                            (2, "bpt_tpu.accel"),
                                            (6, "bpt_tpu")]
+    probe.write_text("import jax\nfrom jax import numpy\nimport jaxlib\n"
+                     "def f():\n    import jax.numpy as jnp\n")
+    assert _imports_jax_package(probe, "jax") == [(1, "jax"), (2, "jax"),
+                                                  (5, "jax.numpy")]
 
 
 def test_scene_modules_load_without_the_jax_package():
     """Importing the scene entry points, the integrators, the CLI with
-    its I/O and chip_smoke.py, in a fresh interpreter, loads no module of
-    bpt_tpu."""
+    its I/O, differentiation, the realtime loop, chip_smoke.py and the
+    inverse-rendering probe, in a fresh interpreter, loads no module of
+    bpt_tpu and not jax."""
     code = textwrap.dedent("""
         import sys
+        sys.path.insert(0, "probes")
         import bpt_tpu_torch.scene.scene
         import bpt_tpu_torch.scene.export
         import bpt_tpu_torch.scene.procedural
@@ -80,9 +92,15 @@ def test_scene_modules_load_without_the_jax_package():
         import bpt_tpu_torch.io.exr
         import bpt_tpu_torch.io.checkpoint
         import bpt_tpu_torch.cli
+        import bpt_tpu_torch.diff.grad
+        import bpt_tpu_torch.diff.inverse
+        import bpt_tpu_torch.realtime
+        import bpt_tpu_torch.core.flycam
         import chip_smoke
+        import inverse_recover
         leaked = [m for m in sys.modules
-                  if m == "bpt_tpu" or m.startswith("bpt_tpu.")]
+                  if m in ("bpt_tpu", "jax") or m.startswith("bpt_tpu.")
+                  or m.startswith("jax.")]
         assert not leaked, leaked
         print("OK")
     """)
@@ -149,3 +167,44 @@ def test_bvh_and_treelets_match_reference(sources, name):
         np.testing.assert_array_equal(getattr(tl, f), getattr(tl_ref, f),
                                       err_msg=f)
     assert tl.bmin.shape[0] == {"subdiv5": 235, "exported_obj": 19}[name]
+
+
+def test_flycam_matches_reference():
+    """core/flycam.py's _rotate gives arrays equal to the reference's on
+    random axes, angles and vectors, and parse_commands the same events."""
+    from bpt_tpu.core import flycam as ref
+    from bpt_tpu_torch.core import flycam
+
+    rs = np.random.RandomState(8)
+    for _ in range(50):
+        axis, v = rs.normal(size=3), rs.normal(size=3)
+        angle = rs.uniform(-np.pi, np.pi)
+        np.testing.assert_array_equal(flycam._rotate(axis, angle, v),
+                                      ref._rotate(axis, angle, v))
+    script = "wasd.P+3.5;H-12;. w.P-90;..dd.H+0.25;."
+    assert list(flycam.parse_commands(script)) == \
+        list(ref.parse_commands(script))
+    assert (flycam._SCALE, flycam._MAX_RATE, flycam._ANGLE_DAMP,
+            flycam._DELTA_DAMP) == (ref._SCALE, ref._MAX_RATE,
+                                    ref._ANGLE_DAMP, ref._DELTA_DAMP)
+
+
+@pytest.mark.parametrize("cls", ["ConstantTexture3f", "ConstantTexture1f",
+                                 "BitmapTexture3f", "BitmapTexture1f"])
+def test_texture_classes_match_reference(cls):
+    """Each Texture<T> class of the port returns what the reference's
+    returns, by array equality, on a random 7x5 image (a constant for the
+    constant textures) at random UVs inside and outside [0, 1)."""
+    from bpt_tpu.scene import textures as ref
+    from bpt_tpu_torch.scene import textures
+
+    rs = np.random.RandomState(9)
+    arg = {"ConstantTexture3f": rs.rand(3), "ConstantTexture1f": rs.rand(),
+           "BitmapTexture3f": rs.rand(7, 5, 3).astype(np.float32),
+           "BitmapTexture1f": rs.rand(7, 5, 3).astype(np.float32)}[cls]
+    got, want = getattr(textures, cls)(arg), getattr(ref, cls)(arg)
+    for st in rs.uniform(-2.0, 2.0, (40, 2)):
+        np.testing.assert_array_equal(got.eval(st), want.eval(st))
+    for method in ("average", "min", "max"):
+        np.testing.assert_array_equal(getattr(got, method)(),
+                                      getattr(want, method)())
