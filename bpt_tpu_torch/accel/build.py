@@ -1,5 +1,5 @@
 """Host-side BVH builder: flat, threaded (skip-link) nodes over triangles
-(copy of the numpy midpoint builder of bpt_tpu/accel/build.py).
+(port of the midpoint builder of bpt_tpu/accel/build.py).
 
 A binary BVH with midpoint splits on the longest centroid-extent axis and
 leaf size LEAF_SIZE, as the reference renderer's Fast-BVH builds it,
@@ -11,10 +11,12 @@ stored as a threaded array:
     whole subtree, taken on a box miss and after a leaf;
   * leaf primitives are reordered to be contiguous.
 
-Only the numpy construction is copied: the reference's native C++
-builder and its binned-SAH option give the same or other trees and are
-not used by the port, which must build exactly the reference's
-`build_bvh(..., use_native=False)` tree.
+`build_bvh` builds with the native C++ builder (`native/native.py`, a
+copy of the reference's, compiled at first use); `build_bvh_numpy`, a
+copy of the reference's numpy construction, is its plain version, which
+the tests hold it to: both give exactly the reference's
+`build_bvh(..., use_native=False)` tree.  The reference's binned-SAH
+option is not ported.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ import dataclasses
 import sys
 
 import numpy as np
+
+from ..native.native import build_bvh_native
 
 LEAF_SIZE = 4  # matches Fast-BVH
 
@@ -43,9 +47,15 @@ class FlatBVH:
 
 
 def build_bvh(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray) -> FlatBVH:
-    """Midpoint BVH over triangles given by (T, 3) vertex arrays: preorder
-    recursive construction, per-node work vectorised over the node's
-    primitive slice."""
+    """Midpoint BVH over triangles given by (T, 3) vertex arrays, built by
+    the native builder (raises where no C++ compiler can build it)."""
+    return FlatBVH(*build_bvh_native(v0, v1, v2))
+
+
+def build_bvh_numpy(v0: np.ndarray, v1: np.ndarray,
+                    v2: np.ndarray) -> FlatBVH:
+    """The same tree in numpy: preorder recursive construction, per-node
+    work vectorised over the node's primitive slice."""
     t = v0.shape[0]
     lo = np.minimum(np.minimum(v0, v1), v2).astype(np.float64)
     hi = np.maximum(np.maximum(v0, v1), v2).astype(np.float64)

@@ -82,6 +82,13 @@ def fold_in(keys, data):
     return torch.stack(torch.broadcast_tensors(y1, y2), dim=-1)
 
 
+def stream(k, *ids):
+    """A sub-key of a (2,) key: each integer tag folded in in turn."""
+    for i in ids:
+        k = fold_in(k, i)
+    return k
+
+
 def lane_keys(k, lane_ids):
     """(B, 2) keys: one per lane identity (e.g. pixel index)."""
     return fold_in(k[None, :], lane_ids)

@@ -84,6 +84,25 @@ Differentiation and the realtime loop run them as well:
     run_interactive with a fly script, and one `python -m
     bpt_tpu_torch.cli` process on a realtime = true scene file.
 
+Pooled light transport, the device mesh and the native BVH builder run
+them too; the mesh is a world of one rank over NCCL (the card is one
+GPU):
+
+  * `pool`: the bench configuration with a pool of 64 light subpaths, 2
+    spp, through parallel/mesh.py's render_chunk_pool_ring (15 K1 and 39
+    K2 launches a sample: 25 connect chunks), held to the single-device
+    render_sample_pool loop; connect_pool on one sample at the default
+    chunk budget and at chunks of 6 and 1 pool vertices (1: the
+    reference's lane budget at this width); at 64x64 through the kernels
+    against their plain versions; `pool_xest`: pooled against per-pixel
+    BDPT means over 6 seeds, gated (|z| < 4) at a pool of W*H paths;
+  * `pool_large`: the pool (64x64, 16 paths) on the large scene through
+    K3/K4, held to their plain versions;
+  * `sharded`: render_image_sharded on the bench configuration at 4 spp,
+    both framebuffer merges, against render_image, and their walls;
+  * `native`: the large scene loaded with the native and with the numpy
+    BVH builder: load and build times, trees and scenes equal.
+
 Each kernel's launch count is reset just before each path runs and read
 just after; the kernels line sums them over the paths.  A small render
 through the kernels is compared with one through the plain versions on
@@ -135,6 +154,19 @@ XEST = dict(width=64, spp=8, replicates=6, max_bounces=16, bdpt_rr_depth=3,
 # The command-line renderer on scene files: 512x512, bdpt at 4 spp in
 # chunks of 2 (checkpointed), the others at 4 spp.
 CLI = dict(width=512, bdpt_spp=4, spp=4, timeout_s=300)
+# Pooled light transport (phase pool): the bench configuration with a pool
+# of 64 light subpaths, 2 spp, through render_chunk_pool_ring at world
+# size 1; connect chunks of the default budget and of `chunks` pool
+# vertices timed on one sample (1 is the reference's TPU budget of
+# 458,752 lanes at this width); kernels against plain versions at 64x64;
+# pooled against per-pixel BDPT means on modes' all-diffuse box.
+POOL = dict(light_pool=64, spp=2, chunks=(6, 1), small_width=64,
+            small_spp=2, z_spp=4, z_rr_depth=3, replicates=6)
+# The pool on the large scene through K3/K4 (phase pool_large).
+POOL_LARGE = dict(width=64, light_pool=16, spp=2)
+# render_image_sharded at world size 1 (phase sharded): the bench
+# configuration cut to 4 spp.
+SHARDED_SPP = 4
 # The second table of K5-K7: more treelets than a candidate buffer (K5)
 # or a compaction round (K7) holds.
 SUBDIV6 = dict(sphere_subdiv=6, n_treelets=923)
@@ -450,11 +482,14 @@ def kernel_resources(info, kernel):
 
 
 def phase_device():
+    from bpt_tpu_torch.native import native
     from bpt_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     lib = _build.library()
     ptxas = ptxas_report(lib.build_log)
+    t1 = time.perf_counter()
+    native.library()
     info = {
         "phase": "device",
         "nvidia_smi": nvidia_smi_line(),
@@ -463,7 +498,8 @@ def phase_device():
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
         "python": sys.version.split()[0],
-        "kernel_build_s": time.perf_counter() - t0,
+        "kernel_build_s": t1 - t0,
+        "native_build_s": time.perf_counter() - t1,
         "ptxas": ptxas,
     }
     emit(info, t0)
@@ -658,10 +694,29 @@ def phase_k12_edges(scene, device):
                              f"on edge inputs {failed}")
 
 
-def phase_large_scene(device):
+class _TimedBuilder:
+    """A BVH builder that records its wall time and its tree, swapped
+    into scene/scene.py for one load."""
+
+    def __init__(self, build):
+        self.build, self.s, self.tree = build, 0.0, None
+
+    def __call__(self, v0, v1, v2):
+        t = time.perf_counter()
+        self.tree = self.build(v0, v1, v2)
+        self.s = time.perf_counter() - t
+        return self.tree
+
+
+def phase_large_scene(device, smi):
     """The large scene as a user brings it: written as TOML + OBJ/MTL to a
-    temporary directory, then read back through load_toml and
-    load_scene."""
+    temporary directory, then read back through load_toml and load_scene
+    (the native BVH builder); phase_native loads it again with the numpy
+    builder."""
+    from unittest import mock
+
+    from bpt_tpu_torch.accel.build import build_bvh
+    from bpt_tpu_torch.scene import scene as scene_mod
     from bpt_tpu_torch.scene.export import export_cornell_box
     from bpt_tpu_torch.scene.scene import load_scene
     from bpt_tpu_torch.scene.toml_config import load_toml
@@ -676,15 +731,19 @@ def phase_large_scene(device):
         t1 = time.perf_counter()
         cfg = load_toml(toml_path)
         obj_bytes = os.path.getsize(cfg.obj_file)
-        scene, meta = load_scene(cfg.obj_file, device)
+        builder = _TimedBuilder(build_bvh)
+        with mock.patch.object(scene_mod, "build_bvh", builder):
+            scene, meta = load_scene(cfg.obj_file, device)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
+        phase_native(cfg.obj_file, device, smi, scene, builder, t2 - t1)
     nt = scene.treelets.block.shape[0]
     out = {"phase": "large_scene", "config": "glass cbox, sphere subdiv 7, "
            "scene file -> load_toml -> load_scene",
            "n_triangles": meta.n_triangles, "n_treelets": nt,
            "n_treelets_any": scene.treelets_any.block.shape[0],
            "obj_bytes": obj_bytes, "write_s": t1 - t0, "load_s": t2 - t1,
+           "bvh_build_s": builder.s,
            "toml": {"width": cfg.width, "height": cfg.height,
                     "spp": cfg.spp, "rr_depth": cfg.rr_depth}}
     emit(out, t0)
@@ -692,6 +751,42 @@ def phase_large_scene(device):
         raise AssertionError("the large scene is not the 327,704-triangle, "
                              "3,656-treelet glass box")
     return scene, meta, cfg
+
+
+def phase_native(obj_file, device, smi, scene, native_builder, native_load_s):
+    """The large scene loaded again with the numpy BVH builder in place of
+    the native one: both load times and build times, the trees equal
+    array for array and the two scenes' tensors equal."""
+    from unittest import mock
+
+    from bpt_tpu_torch.accel.build import build_bvh_numpy
+    from bpt_tpu_torch.scene import scene as scene_mod
+    from bpt_tpu_torch.scene.scene import flatten_fields, load_scene
+
+    t0 = time.perf_counter()
+    builder = _TimedBuilder(build_bvh_numpy)
+    with mock.patch.object(scene_mod, "build_bvh", builder):
+        scene_np, _ = load_scene(obj_file, device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    a, b = native_builder.tree, builder.tree
+    trees_equal = all(
+        getattr(a, f).shape == getattr(b, f).shape
+        and (getattr(a, f) == getattr(b, f)).all()
+        for f in ("bmin", "bmax", "miss", "start", "count", "prim_order"))
+    fields = dict(flatten_fields(scene_np))
+    scenes_equal = all(torch.equal(v, fields[k]) for k, v in
+                       flatten_fields(scene) if torch.is_tensor(v))
+    out = {"phase": "native", "config": "the large scene's OBJ, "
+           "load_scene with each BVH builder", "nvidia_smi": smi,
+           "n_nodes": int(a.n_nodes),
+           "load_s": {"native": native_load_s, "numpy": load_s},
+           "bvh_build_s": {"native": native_builder.s, "numpy": builder.s},
+           "build_speedup": builder.s / native_builder.s,
+           "trees_equal": trees_equal, "scenes_equal": scenes_equal}
+    emit(out, t0)
+    if not (trees_equal and scenes_equal):
+        raise AssertionError("the native and numpy builders' trees differ")
 
 
 def phase_k3(large, large_rays, bench, bench_rays, info):
@@ -1481,6 +1576,277 @@ def phase_slice_sb4(scene, cam, device, smi, base):
     return launches
 
 
+def _pool_render(scene, cc, cfg, key, spp):
+    """`spp` samples of render_sample_pool on one device, the whole pool
+    in one pass, keyed fold_in(key, s): (fb (W*H, 3), nrays)."""
+    from bpt_tpu_torch.core import rng
+    from bpt_tpu_torch.integrators.bdpt import render_sample_pool
+
+    dev = cc["o"].device
+    pix = torch.arange(cfg.width * cfg.height, dtype=torch.int32,
+                       device=dev)
+    pids = torch.arange(cfg.light_pool, dtype=torch.int32, device=dev)
+    fb = torch.zeros((cfg.width * cfg.height, 3), device=dev)
+    nrays = 0
+    for s in range(spp):
+        fb_s, nr = render_sample_pool(scene, cc, cfg, rng.fold_in(key, s),
+                                      pix, pids)
+        fb, nrays = fb + fb_s, nrays + int(nr)
+    return fb, nrays
+
+
+def _pool_chunks(scene, cc, cfg, key, chunks):
+    """connect_pool on one sample's eye and pool vertices at each chunk
+    size (None: the default budget): wall, K2 launches, peak memory and
+    how far each sum is from the default's."""
+    from bpt_tpu_torch.core import rng
+    from bpt_tpu_torch.core.camera import generate_rays
+    from bpt_tpu_torch.integrators.bdpt import (
+        connect_pool,
+        eye_subpath_walk,
+        light_subpath_walk,
+    )
+
+    n = float(cfg.light_pool)
+    pix = torch.arange(cfg.width * cfg.height, dtype=torch.int32,
+                       device=key.device)
+    pids = torch.arange(cfg.light_pool, dtype=torch.int32, device=key.device)
+    lkeys = rng.lane_keys(key, pix)
+    jitter = rng.uniform2(rng.lane_fold(lkeys, rng.PIXEL_JITTER))
+    _, d = generate_rays(cc, cfg.width, cfg.height, pix, jitter)
+    eye = eye_subpath_walk(scene, cc, cfg, lkeys, d, n_light=n,
+                           collect=True)[2]
+    pool = light_subpath_walk(
+        scene, cc, cfg, rng.lane_keys(rng.stream(key, rng.POOL_WALK), pids),
+        cfg.light_pool, torch.ones_like(pids, dtype=torch.bool),
+        n_light=n)[0]
+    out, base = {}, None
+    for chunk in chunks:
+        li, nr, wall, launches, _, peak = counted(
+            lambda: connect_pool(scene, cfg, eye, pool, cfg.light_pool,
+                                 chunk=chunk))
+        if base is None:
+            base = li
+        out["default" if chunk is None else str(chunk)] = {
+            "wall_s": wall, "k2_launches": launches["k2_any_hit"],
+            "nrays": nr, "peak_mem_bytes": peak,
+            "max_rel_diff_vs_default": float(
+                (li - base).abs().max() / base.abs().max().clamp_min(1e-30))}
+    return out
+
+
+def phase_pool(scene, cam, device, smi, mesh):
+    """Pooled light transport on the bench configuration (256x256,
+    rr_depth 8, NO_RR: 7 walk steps) with a pool of POOL["light_pool"]
+    subpaths, POOL["spp"] samples, through render_chunk_pool_ring at
+    world size 1 over NCCL: per sample one primary, 7 pool-walk and 7
+    eye-walk K1 launches, 7 t=1 and 7 NEE K2 launches and one K2 launch
+    a connect chunk.  Held to the single-device render_sample_pool loop;
+    the chunk budget timed against smaller chunks; at 64x64 the kernels
+    against their plain versions and pooled against per-pixel means."""
+    from bpt_tpu_torch.core import rng
+    from bpt_tpu_torch.integrators.bdpt import MEGA_MAX_LANES, BDPTConfig
+    from bpt_tpu_torch.parallel.mesh import render_chunk_pool_ring
+    from bpt_tpu_torch.scene.procedural import cornell_box_scene
+
+    t0 = time.perf_counter()
+    spp = POOL["spp"]
+    cfg = BDPTConfig(BENCH["width"], BENCH["height"], spp=spp,
+                     rr_depth=BENCH["rr_depth"], light_pool=POOL["light_pool"])
+    l = cfg.n_steps
+    e, lp = l * cfg.width * cfg.height, l * cfg.light_pool
+    chunk = max(1, min(lp, MEGA_MAX_LANES // e))
+    n_chunks = -(-lp // chunk)
+    cc = cam.device_constants(device)
+    key = rng.key(SEED, device)
+    tw = time.perf_counter()
+    _pool_render(scene, cc, cfg, key, 1)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - tw
+    fb, nrays, wall, launches, plain_calls, peak = counted(
+        lambda: render_chunk_pool_ring(scene, cc, cfg, mesh, key, spp))
+    fb1, n1, wall1, _, _, _ = counted(
+        lambda: _pool_render(scene, cc, cfg, key, spp))
+    v = image_agreement(fb, nrays, fb1, n1)
+    out = {"phase": "pool", "config": f"procedural glass cbox {cfg.width}x"
+           f"{cfg.height} {spp}spp rr{cfg.rr_depth} light_pool "
+           f"{cfg.light_pool}, render_chunk_pool_ring 1x1 NCCL, seed{SEED}",
+           "nvidia_smi": smi, "warmup_s": warm_s, "wall_s": wall,
+           "wall_s_per_sample": wall / spp, "nrays": nrays,
+           "rays_per_s": nrays / wall, "peak_mem_bytes": peak,
+           "eye_vertices": e, "pool_vertices": lp, "chunk": chunk,
+           "connect_chunks_per_sample": n_chunks, "launches": launches,
+           "launches_per_sample": {k: n / spp for k, n in launches.items()
+                                   if n},
+           "plain_calls_on_cuda": plain_calls,
+           "image_mean": float(fb.mean()),
+           "finite": bool(torch.isfinite(fb).all()),
+           "vs_single_device_loop": {**v, "wall_s": wall1},
+           "connect_chunks": _pool_chunks(scene, cc, cfg, key,
+                                          (None,) + POOL["chunks"])}
+    out.update(_profile_run(lambda: _pool_render(scene, cc, cfg, key, 1),
+                            wall / spp))
+    emit(out, t0)
+    check_render(out, used=("k1_closest_hit", "k2_any_hit"))
+    if (launches["k1_closest_hit"], launches["k2_any_hit"]) != (
+            (1 + 2 * l) * spp, (2 * l + n_chunks) * spp):
+        raise AssertionError(f"pool launched {launches} in {spp} samples")
+    if not agrees(v):
+        raise AssertionError(f"the ring and the single-device pooled "
+                             f"render disagree: {v}")
+
+    w = POOL["small_width"]
+    small, _, cam_s = cornell_box_scene(w, w, device=device,
+                                        right_object="glass_sphere",
+                                        sphere_subdiv=3)
+    cfg_s = BDPTConfig(w, w, spp=POOL["small_spp"],
+                       rr_depth=BENCH["rr_depth"],
+                       light_pool=POOL["light_pool"])
+    cc_s = cam_s.device_constants(device)
+    compare_renders("pool glass box, K1/K2",
+                    f"{w}x{w} {cfg_s.spp}spp rr{cfg_s.rr_depth} light_pool "
+                    f"{cfg_s.light_pool}",
+                    lambda: _pool_render(small, cc_s, cfg_s, key, cfg_s.spp),
+                    _plain_routes("k1", "k2"))
+    add_launches(launches, phase_pool_xest(device, smi))
+    return launches
+
+
+def phase_pool_xest(device, smi):
+    """Pooled against per-pixel BDPT (tests/test_ring.py's consistency
+    check on the card): image means over POOL["replicates"] seeds on
+    modes' all-diffuse box at rr_depth 3.  The pooled mean moves with the
+    pool size (the reference's estimator, ROADMAP.md queue 3): at a pool
+    of W*H paths its MIS weights are the per-pixel ones and the means
+    must agree, |z| < 4; the bench pool (64 paths) at 64x64 is printed
+    with its gap, not gated."""
+    from bpt_tpu_torch.core import rng
+    from bpt_tpu_torch.integrators.bdpt import BDPTConfig, render_chunk
+    from bpt_tpu_torch.scene.procedural import cornell_box_scene
+
+    t0 = time.perf_counter()
+    spp, r = POOL["z_spp"], POOL["replicates"]
+    cases = {"pool_64_at_64x64": (64, POOL["light_pool"], False),
+             "pool_of_w_h_at_32x32": (32, 32 * 32, True)}
+    launches, out = {}, {}
+    for case, (w, n_pool, gated) in cases.items():
+        scene, _, cam = cornell_box_scene(w, w, device=device)
+        cc = cam.device_constants(device)
+        base = dict(spp=spp, rr_depth=POOL["z_rr_depth"])
+        cfgs = {"pool": BDPTConfig(w, w, light_pool=n_pool, **base),
+                "per_pixel": BDPTConfig(w, w, **base)}
+        stats, walls = {}, {}
+        for name, cfg in cfgs.items():
+            m, walls[name] = [], 0.0
+            for i in range(r):
+                key = rng.key(100 + i, device)
+                if name == "pool":
+                    run = lambda: _pool_render(scene, cc, cfg, key, spp)
+                else:
+                    run = lambda: render_chunk(scene, cc, cfg, key, spp,
+                                               samples_per_batch=spp)
+                fb, _, wall, ln, plain_calls, _ = counted(run)
+                if plain_calls or not bool(torch.isfinite(fb).all()):
+                    raise AssertionError(f"{name}: plain calls or "
+                                         f"non-finite")
+                m.append(float(fb.double().mean()))
+                walls[name] += wall
+                add_launches(launches, ln)
+            stats[name] = (statistics.mean(m), statistics.stdev(m) / r ** 0.5)
+        out[case] = {"width": w, "light_pool": n_pool, "gated": gated,
+                     "mean_and_se": stats,
+                     "z": _z(stats["pool"], stats["per_pixel"]),
+                     "rel_gap": stats["pool"][0] / stats["per_pixel"][0] - 1,
+                     "wall_s": walls}
+    emit({"phase": "pool_xest", "config": f"all-diffuse cbox {spp}spp "
+          f"rr{POOL['z_rr_depth']}, {r} seeds from 100", "nvidia_smi": smi,
+          **out, "launches": launches}, t0)
+    for case, v in out.items():
+        if v["gated"] and v["z"] >= 4.0:
+            raise AssertionError(f"pooled and per-pixel means disagree at a "
+                                 f"pool of W*H: {v}")
+    return launches
+
+
+def phase_pool_large(large, cam_large, device, smi):
+    """The pool on the large scene (64x64, rr_depth 8, a pool of 16)
+    through K3/K4: 15 K3 and 15 K4 launches a sample (the pair set fits
+    one connect chunk); held to the render through their plain
+    versions."""
+    from bpt_tpu_torch.core import rng
+    from bpt_tpu_torch.core.camera import Camera
+    from bpt_tpu_torch.integrators.bdpt import BDPTConfig
+
+    w, spp = POOL_LARGE["width"], POOL_LARGE["spp"]
+    cam = Camera.make(cam_large.o, cam_large.at, cam_large.up, cam_large.fov,
+                      w, w)
+    cfg = BDPTConfig(w, w, spp=spp, rr_depth=BENCH["rr_depth"],
+                     light_pool=POOL_LARGE["light_pool"])
+    cc = cam.device_constants(device)
+    key = rng.key(SEED, device)
+    config = (f"large scene {w}x{w} {spp}spp rr{cfg.rr_depth} light_pool "
+              f"{cfg.light_pool}")
+    l = cfg.n_steps
+    _, launches = render_phase(
+        "pool_large", "large", config,
+        lambda: _pool_render(large, cc, cfg, key, spp), spp,
+        {"k3_closest_hit_stream": 1 + 2 * l, "k4_any_hit_stream": 2 * l + 1},
+        smi)
+    compare_renders("pool large scene, K3/K4", config,
+                    lambda: _pool_render(large, cc, cfg, key, spp),
+                    _plain_routes("k3", "k4"))
+    return launches
+
+
+def phase_sharded(scene, cam, device, smi, mesh):
+    """render_image_sharded on the bench configuration (SHARDED_SPP spp)
+    at world size 1 over NCCL, in both framebuffer merges, against
+    render_image at the same samples (chunks of 4, one sample a batch),
+    which runs first and last: the aggregate gate, 8 K1 and 1 K2 launches
+    a sample (the primaries, 7 walk depths, the mega connect), and each
+    sharded wall over the unsharded one."""
+    from bpt_tpu_torch.integrators.bdpt import BDPTConfig, render_image
+    from bpt_tpu_torch.parallel.mesh import FB_MODES, render_image_sharded
+
+    t0 = time.perf_counter()
+    cfg = BDPTConfig(BENCH["width"], BENCH["height"], spp=SHARDED_SPP,
+                     rr_depth=BENCH["rr_depth"])
+    runs = {"render_image": []}
+    unsharded = lambda: render_image(scene, cam, cfg, seed=SEED)
+    ref = counted(unsharded)
+    runs["render_image"].append(ref[2])
+    launches, out_modes = {}, {}
+    for mode in FB_MODES:
+        img, nr, wall, ln, plain_calls, peak = counted(
+            lambda: render_image_sharded(scene, cam, cfg, mesh, seed=SEED,
+                                         fb_mode=mode))
+        add_launches(launches, ln)
+        out_modes[mode] = {"wall_s": wall, "nrays": nr,
+                           "rays_per_s": nr / wall, "peak_mem_bytes": peak,
+                           "launches": ln, "plain_calls_on_cuda": plain_calls,
+                           **image_agreement(img.reshape(-1, 3), nr,
+                                             ref[0].reshape(-1, 3), ref[1])}
+    runs["render_image"].append(counted(unsharded)[2])
+    base = statistics.mean(runs["render_image"])
+    for v in out_modes.values():
+        v["wall_over_unsharded"] = v["wall_s"] / base
+    out = {"phase": "sharded", "config": f"procedural glass cbox "
+           f"{cfg.width}x{cfg.height} {cfg.spp}spp rr{cfg.rr_depth}, mesh "
+           f"1x1 NCCL against render_image, seed{SEED}", "nvidia_smi": smi,
+           "render_image_wall_s": runs["render_image"], "nrays": ref[1],
+           "modes": out_modes, "launches": launches,
+           "image_mean": float(ref[0].mean())}
+    emit(out, t0)
+    for mode, v in out_modes.items():
+        if v["plain_calls_on_cuda"] or not agrees(v):
+            raise AssertionError(f"sharded {mode} disagrees with "
+                                 f"render_image: {v}")
+        if (v["launches"]["k1_closest_hit"], v["launches"]["k2_any_hit"]) \
+                != ((cfg.n_steps + 1) * cfg.spp, cfg.spp):
+            raise AssertionError(f"sharded {mode} launched {v['launches']}")
+    return launches
+
+
 def _z(a, b):
     """|z| of the difference of two (mean, standard error) pairs."""
     return abs(a[0] - b[0]) / (a[1] ** 2 + b[1] ** 2 + 1e-30) ** 0.5
@@ -2232,12 +2598,28 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import bpt_tpu_torch  # noqa: F401  (sets the TF32 switches)
-    from bpt_tpu_torch.ops import trace_any as ta
-    from bpt_tpu_torch.ops import trace_closest as tc
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     info = phase_device()
+    import torch.distributed as dist
+
+    from bpt_tpu_torch.parallel import mesh as pm
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # The device mesh at world size 1 over NCCL (one card): the pool
+        # ring and the sharded render run their collectives over one rank.
+        pm.init_distributed(f"file://{tmp}/store", 1, 0, backend="nccl")
+        try:
+            return _phases(device, info, pm.make_mesh())
+        finally:
+            dist.destroy_process_group()
+
+
+def _phases(device, info, mesh):
+    from bpt_tpu_torch.ops import trace_any as ta
+    from bpt_tpu_torch.ops import trace_closest as tc
+
     smi = info["nvidia_smi"]
     scene, meta, cam = bench_scene(device)
     scene6 = phase_subdiv6(device)
@@ -2253,7 +2635,7 @@ def main():
                    ("subdiv6", scene6.treelets_any, segs6)), info)
     phase_k12_edges(scene, device)
     rays6, segs6 = rays6[0], segs6[1]
-    large, large_meta, cfg_t = phase_large_scene(device)
+    large, large_meta, cfg_t = phase_large_scene(device, smi)
     large_rays = compacted_k1_inputs(large, cfg_t.camera, device)
     large_segs = k2_inputs(large, device, n_connect)
     k3 = phase_k3(large, large_rays, scene, bench_rays, info)
@@ -2291,6 +2673,8 @@ def main():
     k12 = {k: launches[k] for k in ("k1_closest_hit", "k2_any_hit")}
     add_launches(k12, phase_slice_sb4(scene, cam, device, smi, (fb, base)))
     del fb
+    add_launches(k12, phase_pool(scene, cam, device, smi, mesh))
+    add_launches(k12, phase_sharded(scene, cam, device, smi, mesh))
     k34 = phase_slice_large(large, cfg_t, device, smi)
     phase_paths(device, large, cfg_t.camera)
     add_launches(k34, phase_path(large, cfg_t.camera, device, smi,
@@ -2300,6 +2684,7 @@ def main():
                                  name="large", integrators=("ao",),
                                  kernels=("k3", "k4")))
     add_launches(k34, phase_grad_large(large, cfg_t.camera, device, smi))
+    add_launches(k34, phase_pool_large(large, cfg_t.camera, device, smi))
     del large
     torch.cuda.empty_cache()
     add_launches(k12, phase_slice_rr(device, smi))

@@ -191,14 +191,6 @@ def test_configs_once_outside_the_slice_render(change, monkeypatch):
         _gate(ti, ji, tn, jn)
 
 
-@pytest.mark.parametrize("change", [dict(light_pool=16)], ids=["pool"])
-def test_configs_outside_the_slice_raise(change):
-    _, _, ts, tc = _pair(16)
-    cfg = tb.BDPTConfig(16, 16, **{"spp": 1, "rr_depth": 3, **change})
-    with pytest.raises(NotImplementedError):
-        tb.render_image(ts, tc, cfg, seed=0)
-
-
 def test_render_sample_derives_lane_keys_from_the_key():
     """render_sample(..., key, pixel_idx) with lkeys=None keys its lanes
     by rng.lane_keys(key, pixel_idx), as the reference does."""

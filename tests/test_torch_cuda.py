@@ -5,7 +5,9 @@ they take and on edge batches; renders of BDPT and of every integrator
 of path.py, direct.py and misc.py through the kernels against renders
 through the plain versions; gradients through K1/K2 against central
 finite differences and against the plain versions' gradients; each
-realtime pass through the kernels against the plain versions.  These
+realtime pass through the kernels against the plain versions; the
+pooled render through the kernels against the plain versions, and the
+device mesh at world size 1 over NCCL.  These
 need an NVIDIA GPU with nvcc and skip without one; run them on the card
 with
 
@@ -591,3 +593,80 @@ def test_compact_any_kernel_equal_to_plain_and_k2(request, table, n):
     assert any_hit_compact.launches == launches + 1
     assert torch.equal(got, ref)
     assert torch.equal(got, k2)
+
+
+def _pool_render(scene, cam, cfg, seed):
+    """cfg.spp pooled samples of render_sample_pool, the whole pool in one
+    pass: (fb (W*H, 3), nrays)."""
+    from bpt_tpu_torch.core import rng
+    from bpt_tpu_torch.integrators.bdpt import render_sample_pool
+
+    cc = cam.device_constants("cuda")
+    key = rng.key(seed, "cuda")
+    pix = torch.arange(cfg.width * cfg.height, dtype=torch.int32,
+                       device="cuda")
+    pids = torch.arange(cfg.light_pool, dtype=torch.int32, device="cuda")
+    fb, nrays = 0.0, 0
+    for s in range(cfg.spp):
+        fb_s, nr = render_sample_pool(scene, cc, cfg, rng.fold_in(key, s),
+                                      pix, pids)
+        fb, nrays = fb + fb_s, nrays + int(nr)
+    return fb, nrays
+
+
+def test_pooled_render_through_the_kernels(cuda_box):
+    """Pooled light transport (32x32, a pool of 32, rr_depth 4) through
+    K1/K2, in connect chunks of the default budget, against the render
+    through their plain versions; every pool pass launches K2."""
+    from unittest import mock
+
+    from bpt_tpu_torch.accel import api
+    from bpt_tpu_torch.integrators.bdpt import BDPTConfig
+    from bpt_tpu_torch.ops.trace_any import any_hit, any_hit_plain
+    from bpt_tpu_torch.ops.trace_closest import closest_hit, \
+        closest_hit_plain
+
+    scene, _, cam = cuda_box
+    cfg = BDPTConfig(32, 32, spp=2, rr_depth=4, light_pool=32)
+    k1, k2 = closest_hit.launches, any_hit.launches
+    kernel = _pool_render(scene, cam, cfg, seed=3)
+    # Per sample: primaries, 3 pool and 3 eye walk depths through K1; 3
+    # t=1, 3 NEE and one connect_pool chunk through K2.
+    assert closest_hit.launches - k1 == 7 * cfg.spp
+    assert any_hit.launches - k2 == 7 * cfg.spp
+    with mock.patch.object(api, "closest_hit", closest_hit_plain), \
+            mock.patch.object(api, "any_hit", any_hit_plain):
+        plain = _pool_render(scene, cam, cfg, seed=3)
+    _assert_agree(kernel, plain)
+
+
+def test_mesh_at_world_size_one_over_nccl(cuda_box, tmp_path):
+    """parallel/mesh.py on the card: a world of one rank over NCCL, both
+    framebuffer merges of render_image_sharded against render_image, and
+    the pool ring (one pass) against the single-device pooled render."""
+    import torch.distributed as dist
+
+    from bpt_tpu_torch.core import rng
+    from bpt_tpu_torch.integrators.bdpt import BDPTConfig, render_image
+    from bpt_tpu_torch.parallel import mesh as pm
+
+    scene, _, cam = cuda_box
+    device = pm.init_distributed(f"file://{tmp_path / 'store'}", 1, 0,
+                                 backend="nccl")
+    try:
+        mesh = pm.make_mesh()
+        assert (mesh.n_dp, mesh.n_sp, mesh.device) == (1, 1, device)
+        cfg = BDPTConfig(32, 32, spp=2, rr_depth=4)
+        want = render_image(scene, cam, cfg, seed=1)
+        for mode in pm.FB_MODES:
+            got = pm.render_image_sharded(scene, cam, cfg, mesh, seed=1,
+                                          fb_mode=mode)
+            assert got[0].device == device
+            _assert_agree(got, want)
+        cfg = BDPTConfig(32, 32, spp=2, rr_depth=4, light_pool=32)
+        fb, nr = pm.render_chunk_pool_ring(
+            scene, cam.device_constants("cuda"), cfg, mesh,
+            rng.key(3, "cuda"), cfg.spp)
+        _assert_agree((fb, int(nr)), _pool_render(scene, cam, cfg, seed=3))
+    finally:
+        dist.destroy_process_group()

@@ -77,9 +77,9 @@ def test_guard_sees_an_import(tmp_path):
 
 def test_scene_modules_load_without_the_jax_package():
     """Importing the scene entry points, the integrators, the CLI with
-    its I/O, differentiation, the realtime loop, chip_smoke.py and the
-    inverse-rendering probe, in a fresh interpreter, loads no module of
-    bpt_tpu and not jax."""
+    its I/O, differentiation, the realtime loop, the device mesh, the
+    native builder, chip_smoke.py and the inverse-rendering probe, in a
+    fresh interpreter, loads no module of bpt_tpu and not jax."""
     code = textwrap.dedent("""
         import sys
         sys.path.insert(0, "probes")
@@ -96,6 +96,8 @@ def test_scene_modules_load_without_the_jax_package():
         import bpt_tpu_torch.diff.inverse
         import bpt_tpu_torch.realtime
         import bpt_tpu_torch.core.flycam
+        import bpt_tpu_torch.parallel.mesh
+        import bpt_tpu_torch.native.native
         import chip_smoke
         import inverse_recover
         leaked = [m for m in sys.modules
