@@ -39,13 +39,13 @@ _lock = threading.Lock()
 
 
 def _cxx() -> str:
-    for c in (os.environ.get("CXX"), "g++", "c++"):
-        path = c and shutil.which(c)
-        if path:
-            return path
-    raise RuntimeError("no C++ compiler found (CXX, g++ or c++): the "
-                       "native BVH builder of bpt_tpu_torch is built from "
-                       "bpt_tpu_torch/native/bvh_builder.cpp at first use")
+    path = shutil.which("g++")
+    if path is None:
+        raise RuntimeError("no C++ compiler (g++) found: the native BVH "
+                           "builder of bpt_tpu_torch is built from "
+                           "bpt_tpu_torch/native/bvh_builder.cpp at first "
+                           "use")
+    return path
 
 
 def _digest(cxx: str) -> str:

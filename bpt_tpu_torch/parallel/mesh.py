@@ -45,7 +45,9 @@ def init_distributed(init_method=None, world_size=None, rank=None,
     else `init_method` ("tcp://host:port" or "file://path") with the
     world size and this process's rank.  With NCCL the process is first
     bound to its local GPU (LOCAL_RANK, else rank modulo the GPUs on the
-    host); CPU ranks pass backend="gloo".  Returns this rank's device."""
+    host); CPU ranks pass backend="gloo".  Raises ValueError for an
+    init_method without world_size and rank.  Returns this rank's
+    device."""
     if dist.is_initialized():
         raise RuntimeError("the process group is already initialised")
     if init_method is None:
@@ -53,10 +55,14 @@ def init_distributed(init_method=None, world_size=None, rank=None,
         rank = int(os.environ["RANK"]) if rank is None else rank
         world_size = (int(os.environ["WORLD_SIZE"]) if world_size is None
                       else world_size)
+    elif rank is None or world_size is None:
+        raise ValueError(f"init_method {init_method!r} needs the world size "
+                         f"and this process's rank")
     device = torch.device("cpu")
     if backend == "nccl":
-        local = int(os.environ.get("LOCAL_RANK",
-                                   rank % torch.cuda.device_count()))
+        local = os.environ.get("LOCAL_RANK")
+        local = rank % torch.cuda.device_count() if local is None \
+            else int(local)
         device = torch.device("cuda", local)
         torch.cuda.set_device(device)
     dist.init_process_group(backend, init_method=init_method,

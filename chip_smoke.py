@@ -95,7 +95,8 @@ GPU):
     chunk budget and at chunks of 6 and 1 pool vertices (1: the
     reference's lane budget at this width); at 64x64 through the kernels
     against their plain versions; `pool_xest`: pooled against per-pixel
-    BDPT means over 6 seeds, gated (|z| < 4) at a pool of W*H paths;
+    BDPT means over 6 seeds at 64x64, gated (|z| < 4) at a pool of W*H
+    paths;
   * `pool_large`: the pool (64x64, 16 paths) on the large scene through
     K3/K4, held to their plain versions;
   * `sharded`: render_image_sharded on the bench configuration at 4 spp,
@@ -1715,56 +1716,64 @@ def phase_pool(scene, cam, device, smi, mesh):
 def phase_pool_xest(device, smi):
     """Pooled against per-pixel BDPT (tests/test_ring.py's consistency
     check on the card): image means over POOL["replicates"] seeds on
-    modes' all-diffuse box at rr_depth 3.  The pooled mean moves with the
-    pool size (the reference's estimator, ROADMAP.md queue 3): at a pool
-    of W*H paths its MIS weights are the per-pixel ones and the means
-    must agree, |z| < 4; the bench pool (64 paths) at 64x64 is printed
-    with its gap, not gated."""
+    modes' all-diffuse box at 64x64, rr_depth 3.  At a pool of W*H paths
+    the MIS weights are the per-pixel ones and the means must agree,
+    |z| < 4 (a gap of about 1% reads |z| > 4 here).  The pooled mean
+    moves with the pool size (the reference's estimator,
+    tests/test_torch_pool_size.py): the bench pool (64 paths) is printed
+    with its gap to per-pixel and to the pool of W*H on the same keys,
+    not gated."""
     from bpt_tpu_torch.core import rng
     from bpt_tpu_torch.integrators.bdpt import BDPTConfig, render_chunk
     from bpt_tpu_torch.scene.procedural import cornell_box_scene
 
     t0 = time.perf_counter()
-    spp, r = POOL["z_spp"], POOL["replicates"]
-    cases = {"pool_64_at_64x64": (64, POOL["light_pool"], False),
-             "pool_of_w_h_at_32x32": (32, 32 * 32, True)}
-    launches, out = {}, {}
-    for case, (w, n_pool, gated) in cases.items():
-        scene, _, cam = cornell_box_scene(w, w, device=device)
-        cc = cam.device_constants(device)
-        base = dict(spp=spp, rr_depth=POOL["z_rr_depth"])
-        cfgs = {"pool": BDPTConfig(w, w, light_pool=n_pool, **base),
-                "per_pixel": BDPTConfig(w, w, **base)}
-        stats, walls = {}, {}
-        for name, cfg in cfgs.items():
-            m, walls[name] = [], 0.0
-            for i in range(r):
-                key = rng.key(100 + i, device)
-                if name == "pool":
-                    run = lambda: _pool_render(scene, cc, cfg, key, spp)
-                else:
-                    run = lambda: render_chunk(scene, cc, cfg, key, spp,
-                                               samples_per_batch=spp)
-                fb, _, wall, ln, plain_calls, _ = counted(run)
-                if plain_calls or not bool(torch.isfinite(fb).all()):
-                    raise AssertionError(f"{name}: plain calls or "
-                                         f"non-finite")
-                m.append(float(fb.double().mean()))
-                walls[name] += wall
-                add_launches(launches, ln)
-            stats[name] = (statistics.mean(m), statistics.stdev(m) / r ** 0.5)
-        out[case] = {"width": w, "light_pool": n_pool, "gated": gated,
-                     "mean_and_se": stats,
-                     "z": _z(stats["pool"], stats["per_pixel"]),
-                     "rel_gap": stats["pool"][0] / stats["per_pixel"][0] - 1,
-                     "wall_s": walls}
-    emit({"phase": "pool_xest", "config": f"all-diffuse cbox {spp}spp "
-          f"rr{POOL['z_rr_depth']}, {r} seeds from 100", "nvidia_smi": smi,
-          **out, "launches": launches}, t0)
-    for case, v in out.items():
-        if v["gated"] and v["z"] >= 4.0:
-            raise AssertionError(f"pooled and per-pixel means disagree at a "
-                                 f"pool of W*H: {v}")
+    spp, r, w = POOL["z_spp"], POOL["replicates"], POOL["small_width"]
+    scene, _, cam = cornell_box_scene(w, w, device=device)
+    cc = cam.device_constants(device)
+    base = dict(spp=spp, rr_depth=POOL["z_rr_depth"])
+    cfgs = {"per_pixel": BDPTConfig(w, w, **base),
+            "pool_of_w_h": BDPTConfig(w, w, light_pool=w * w, **base),
+            "bench_pool": BDPTConfig(w, w, light_pool=POOL["light_pool"],
+                                  **base)}
+    launches, means, walls = {}, {}, {}
+    for name, cfg in cfgs.items():
+        means[name], walls[name] = [], 0.0
+        for i in range(r):
+            key = rng.key(100 + i, device)
+            if name == "per_pixel":
+                run = lambda: render_chunk(scene, cc, cfg, key, spp,
+                                           samples_per_batch=spp)
+            else:
+                run = lambda: _pool_render(scene, cc, cfg, key, spp)
+            fb, _, wall, ln, plain_calls, _ = counted(run)
+            if plain_calls or not bool(torch.isfinite(fb).all()):
+                raise AssertionError(f"{name}: plain calls or non-finite")
+            means[name].append(float(fb.double().mean()))
+            walls[name] += wall
+            add_launches(launches, ln)
+    stats = {n: (statistics.mean(m), statistics.stdev(m) / r ** 0.5)
+             for n, m in means.items()}
+    pp = stats["per_pixel"]
+    out = {n: {"light_pool": cfgs[n].light_pool, "mean_and_se": stats[n],
+               "z_vs_per_pixel": _z(stats[n], pp),
+               "rel_gap_vs_per_pixel": stats[n][0] / pp[0] - 1,
+               "wall_s": walls[n]} for n in ("pool_of_w_h", "bench_pool")}
+    # The two pools on the same keys: the same eye paths, so the paired
+    # differences carry little of the noise.
+    d = [a - b for a, b in zip(means["bench_pool"], means["pool_of_w_h"])]
+    out["bench_pool_vs_pool_of_w_h_paired"] = {
+        "rel_gap": stats["bench_pool"][0] / stats["pool_of_w_h"][0] - 1,
+        "z": abs(statistics.mean(d)) / (statistics.stdev(d) / r ** 0.5
+                                        + 1e-30)}
+    emit({"phase": "pool_xest", "config": f"all-diffuse cbox {w}x{w} "
+          f"{spp}spp rr{POOL['z_rr_depth']}, {r} seeds from 100",
+          "nvidia_smi": smi, "per_pixel": {"mean_and_se": pp,
+                                           "wall_s": walls["per_pixel"]},
+          **out, "gated": "pool_of_w_h", "launches": launches}, t0)
+    if out["pool_of_w_h"]["z_vs_per_pixel"] >= 4.0:
+        raise AssertionError(f"pooled and per-pixel means disagree at a "
+                             f"pool of W*H: {out}")
     return launches
 
 

@@ -72,11 +72,10 @@ def test_vertex_arrays_of_another_shape_raise():
 
 
 def test_without_a_compiler_the_build_raises(tmp_path, monkeypatch):
-    """No compiler on PATH and none in CXX: a RuntimeError that says what
-    is missing, and no numpy tree in its place."""
+    """No g++ on PATH: a RuntimeError that says what is missing, and no
+    numpy tree in its place."""
     monkeypatch.setattr(native, "_library", None)
     monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "_build")
-    monkeypatch.delenv("CXX", raising=False)
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="C\\+\\+ compiler"):
         build_bvh(*_random_triangles(4))

@@ -339,6 +339,21 @@ def test_mesh_refuses_what_it_cannot_split(runs, name):
         assert {c: int(rank[f"error_{c}"]) for c in ERRORS} == want
 
 
+@pytest.mark.parametrize("given", [dict(), dict(world_size=2),
+                                   dict(rank=0)],
+                         ids=["neither", "no_rank", "no_world_size"])
+def test_init_method_without_rank_and_world_size_raises(tmp_path, given):
+    """An explicit init_method needs the world size and the rank: a
+    ValueError before any process group is joined, under NCCL too."""
+    import torch.distributed as dist
+
+    from bpt_tpu_torch.parallel.mesh import init_distributed
+
+    with pytest.raises(ValueError, match="world size"):
+        init_distributed(f"file://{tmp_path / 'store'}", **given)
+    assert not dist.is_initialized()
+
+
 @pytest.mark.parametrize("name", MESHES)
 def test_sharded_descent_step_matches_single_process(runs, name):
     """dryrun_multichip's step on the port (local gradients through each
