@@ -13,8 +13,8 @@ has the same fields in both packages.  `group_boxes`, `triangle_rows`,
 box of each run of G consecutive treelets, which the streamed kernels K3
 and K4 test before the members' boxes; the triangles laid out one slot
 per 48 bytes for those kernels' loads, with each treelet's count of
-slots up to its last triangle; and, for K1 and K2, the same rows packed
-to their counts behind an offset table.
+slots up to its last triangle; and, for K1, K2, K6 and K7, the same
+rows packed to their counts behind an offset table.
 """
 from __future__ import annotations
 
@@ -184,8 +184,8 @@ def triangle_counts(tg: TreeletGeom) -> torch.Tensor:
 
 
 def packed_triangles(tg: TreeletGeom):
-    """The triangles of `tg` packed to their counts, for K1 and K2:
-    (rows, offsets).  `rows` is (S, 12) i32, S = sum(triangle_counts):
+    """The triangles of `tg` packed to their counts, for K1, K2, K6 and
+    K7: (rows, offsets).  `rows` is (S, 12) i32, S = sum(triangle_counts):
     treelet j's slots [0, count_j) in slot order as rows [offsets[j],
     offsets[j + 1]), each the bits of (v0 xyz, e1 xyz, e2 xyz) followed
     by the slot's `tri_index` and two zeros, 48 bytes, 16-byte aligned.

@@ -52,17 +52,6 @@ namespace {
 
 using namespace bpt;
 
-__device__ __forceinline__ void store_best(int lane, const Best& best,
-                                           float* __restrict__ t_out,
-                                           int32_t* __restrict__ tri_out,
-                                           float* __restrict__ u_out,
-                                           float* __restrict__ v_out) {
-  t_out[lane] = best.t;
-  tri_out[lane] = best.tri;
-  u_out[lane] = best.u;
-  v_out[lane] = best.v;
-}
-
 template <bool kResident>
 __global__ void __launch_bounds__(kStreamThreads, 2)
 closest_hit_kernel(const float* __restrict__ bmin,

@@ -39,22 +39,28 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# The kernels that read the (NT, 9, K) block (K5; K6 and K7 before their
+# redesign, which probes/k67_old_vs_new.py builds):
 # bmin, bmax, block, tri_index, nt, k, o, d, min_t, max_t, b,
 # t, tri, u, v, stream
 _CLOSEST = (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P)
 # bmin, bmax, block, nt, k, o, d, min_t, max_t, b, occ, stream
 _ANY = (_P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P)
+# The kernels that read the packed rows (accel/treelets.py::
+# packed_triangles): K1 and K6, K2 and K7.
+# bmin, bmax, rows, offsets, nt, n_rows, o, d, min_t, max_t, b,
+# t, tri, u, v, counter, stream
+_CLOSEST_PACKED = (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
+                   _P, _P, _P)
+# bmin, bmax, rows, offsets, nt, n_rows, o, d, min_t, max_t, b, occ,
+# counter, stream
+_ANY_PACKED = (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P)
 _SIGNATURES = {
-    # bmin, bmax, rows, offsets, nt, n_rows, o, d, min_t, max_t, b,
-    # t, tri, u, v, counter, stream
-    "bpt_closest_hit": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P,
-                        _P, _P, _P, _P),
+    "bpt_closest_hit": _CLOSEST_PACKED,
     "bpt_closest_hit_full": _CLOSEST,
-    "bpt_closest_hit_sweep": _CLOSEST,
-    # bmin, bmax, rows, offsets, nt, n_rows, o, d, min_t, max_t, b, occ,
-    # counter, stream
-    "bpt_any_hit": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P),
-    "bpt_any_hit_compact": _ANY,
+    "bpt_closest_hit_sweep": _CLOSEST_PACKED,
+    "bpt_any_hit": _ANY_PACKED,
+    "bpt_any_hit_compact": _ANY_PACKED,
     # bmin, bmax, gmin, gmax, rows, counts, tri_index, nt, ng, g, k, o, d,
     # min_t, max_t, b, t, tri, u, v, counter, stream
     "bpt_closest_hit_stream": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -9,8 +9,8 @@ of any size, with the table taken in groups of `chunk_nt` consecutive
 treelets behind their union boxes (accel/treelets.py::group_boxes).
 K7 (`any_hit_compact`, csrc/any_hit_compact.cu) replaces
 bpt_tpu/ops/pallas_trace.py::trace_any_compact: the same flags, with
-each tile of lanes walking only the compacted union of the treelets its
-lanes overlap.
+each tile of 128 lanes testing only the union of the treelets its lanes
+overlap, listed in shared memory.
 
 Each wrapper runs its plain PyTorch version for tensors on the CPU and
 launches its kernel for CUDA tensors, or raises.  `<wrapper>.launches`
@@ -97,24 +97,28 @@ def any_hit_compact_plain(tg, o, d, min_t, max_t):
 any_hit_compact_plain.cuda_calls = 0
 
 
+def _launch_packed(name, tg, o, d, min_t, max_t, b, nt):
+    """Launch an any-hit kernel that reads the table's boxes and its
+    packed triangles (accel/treelets.py::packed_triangles): K2, K7."""
+    rows, offsets = packed_triangles(tg)
+    occ = torch.empty((b,), dtype=torch.bool, device=o.device)
+    counter = torch.zeros((1,), dtype=torch.int32, device=o.device)
+    _build.launch(name, o.device, tg.bmin.data_ptr(), tg.bmax.data_ptr(),
+                  rows.data_ptr(), offsets.data_ptr(), nt, rows.shape[0],
+                  o.data_ptr(), d.data_ptr(), min_t.data_ptr(),
+                  max_t.data_ptr(), b, occ.data_ptr(), counter.data_ptr())
+    return occ
+
+
 def any_hit(tg, o, d, min_t, max_t):
     """K2: occlusion flags (B,) bool of segments (B, 3) with (B,) windows
-    against a table of at most MAX_TREELETS treelets.  The kernel reads
-    the table's boxes and its packed triangles
-    (accel/treelets.py::packed_triangles)."""
+    against a table of at most MAX_TREELETS treelets."""
     b, nt, k = check_trace_args(tg, o, d, min_t, max_t)
     if o.device.type == "cpu":
         return any_hit_plain(tg, o, d, min_t, max_t)
-    occ = torch.empty((b,), dtype=torch.bool, device=o.device)
     if b == 0:
-        return occ
-    rows, offsets = packed_triangles(tg)
-    counter = torch.zeros((1,), dtype=torch.int32, device=o.device)
-    _build.launch("bpt_any_hit", o.device, tg.bmin.data_ptr(),
-                  tg.bmax.data_ptr(), rows.data_ptr(), offsets.data_ptr(), nt,
-                  rows.shape[0], o.data_ptr(), d.data_ptr(),
-                  min_t.data_ptr(), max_t.data_ptr(), b, occ.data_ptr(),
-                  counter.data_ptr())
+        return torch.empty((0,), dtype=torch.bool, device=o.device)
+    occ = _launch_packed("bpt_any_hit", tg, o, d, min_t, max_t, b, nt)
     any_hit.launches += 1
     return occ
 
@@ -150,17 +154,14 @@ any_hit_stream.launches = 0
 def any_hit_compact(tg, o, d, min_t, max_t):
     """K7, the counterpart of the TPU kernel trace_any_compact: occlusion
     flags (B,) bool, equal to K2's, computed by tiles of lanes over the
-    compacted union of their treelets.  At most MAX_TREELETS treelets."""
+    union of their treelets.  At most MAX_TREELETS treelets."""
     b, nt, k = check_trace_args(tg, o, d, min_t, max_t)
     if o.device.type == "cpu":
         return any_hit_compact_plain(tg, o, d, min_t, max_t)
-    occ = torch.empty((b,), dtype=torch.bool, device=o.device)
     if b == 0:
-        return occ
-    _build.launch("bpt_any_hit_compact", o.device, tg.bmin.data_ptr(),
-                  tg.bmax.data_ptr(), tg.block.data_ptr(), nt, k,
-                  o.data_ptr(), d.data_ptr(), min_t.data_ptr(),
-                  max_t.data_ptr(), b, occ.data_ptr())
+        return torch.empty((0,), dtype=torch.bool, device=o.device)
+    occ = _launch_packed("bpt_any_hit_compact", tg, o, d, min_t, max_t, b,
+                         nt)
     any_hit_compact.launches += 1
     return occ
 

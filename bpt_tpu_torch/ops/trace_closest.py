@@ -12,7 +12,7 @@ csrc/closest_hit_full.cu) replaces pallas_trace.py::trace_closest_pallas:
 K1's function, with each ray's entries computed once into a candidate
 list.  K6 (`closest_hit_sweep`, csrc/closest_hit_sweep.cu) replaces
 pallas_sweep.py::trace_closest_sweep: one visit order shared by a tile of
-SWEEP_TILE lanes.
+SWEEP_TILE lanes, sorted in shared memory.
 
 Each wrapper runs its plain PyTorch version for tensors on the CPU and
 launches its kernel for CUDA tensors, or raises.  `<wrapper>.launches`
@@ -199,8 +199,7 @@ def _outputs(b, device):
 
 
 def _launch_closest(name, tg, o, d, min_t, max_t, b, nt, k):
-    """Launch a closest-hit kernel that reads the (NT, 9, K) block (K5,
-    K6)."""
+    """Launch a closest-hit kernel that reads the (NT, 9, K) block (K5)."""
     out = _outputs(b, o.device)
     if b:
         _build.launch(name, o.device, tg.bmin.data_ptr(), tg.bmax.data_ptr(),
@@ -210,24 +209,29 @@ def _launch_closest(name, tg, o, d, min_t, max_t, b, nt, k):
     return out
 
 
+def _launch_packed(name, tg, o, d, min_t, max_t, b, nt):
+    """Launch a closest-hit kernel that reads the table's boxes and its
+    packed triangles (accel/treelets.py::packed_triangles): K1, K6."""
+    out = _outputs(b, o.device)
+    rows, offsets = packed_triangles(tg)
+    counter = torch.zeros((1,), dtype=torch.int32, device=o.device)
+    _build.launch(name, o.device, tg.bmin.data_ptr(), tg.bmax.data_ptr(),
+                  rows.data_ptr(), offsets.data_ptr(), nt, rows.shape[0],
+                  o.data_ptr(), d.data_ptr(), min_t.data_ptr(),
+                  max_t.data_ptr(), b, *(x.data_ptr() for x in out),
+                  counter.data_ptr())
+    return out
+
+
 def closest_hit(tg, o, d, min_t, max_t):
     """K1: closest hit of rays (B, 3) with (B,) windows against a table of
-    at most MAX_TREELETS treelets.  Returns (t, tri, u, v), each (B,).
-    The kernel reads the table's boxes and its packed triangles
-    (accel/treelets.py::packed_triangles)."""
+    at most MAX_TREELETS treelets.  Returns (t, tri, u, v), each (B,)."""
     b, nt, k = check_trace_args(tg, o, d, min_t, max_t)
     if o.device.type == "cpu":
         return closest_hit_plain(tg, o, d, min_t, max_t)
-    out = _outputs(b, o.device)
     if b == 0:
-        return out
-    rows, offsets = packed_triangles(tg)
-    counter = torch.zeros((1,), dtype=torch.int32, device=o.device)
-    _build.launch("bpt_closest_hit", o.device, tg.bmin.data_ptr(),
-                  tg.bmax.data_ptr(), rows.data_ptr(), offsets.data_ptr(), nt,
-                  rows.shape[0], o.data_ptr(), d.data_ptr(),
-                  min_t.data_ptr(), max_t.data_ptr(), b,
-                  *(x.data_ptr() for x in out), counter.data_ptr())
+        return _outputs(0, o.device)
+    out = _launch_packed("bpt_closest_hit", tg, o, d, min_t, max_t, b, nt)
     closest_hit.launches += 1
     return out
 
@@ -286,9 +290,11 @@ def closest_hit_sweep(tg, o, d, min_t, max_t):
     b, nt, k = check_trace_args(tg, o, d, min_t, max_t)
     if o.device.type == "cpu":
         return closest_hit_sweep_plain(tg, o, d, min_t, max_t)
-    out = _launch_closest("bpt_closest_hit_sweep", tg, o, d, min_t, max_t,
-                          b, nt, k)
-    closest_hit_sweep.launches += int(b > 0)
+    if b == 0:
+        return _outputs(0, o.device)
+    out = _launch_packed("bpt_closest_hit_sweep", tg, o, d, min_t, max_t, b,
+                         nt)
+    closest_hit_sweep.launches += 1
     return out
 
 

@@ -7,11 +7,11 @@ each one against its plain PyTorch version at the main paths' shapes:
 K1-K4 as the routes of `accel/api.py` use them (K3 and K4 also against
 K1's and K2's plain versions, whose functions they compute), and K1, K2,
 K5 (full-table closest hit), K6 (tile-sweep closest hit) and K7
-(compact-table any hit) on the bench scene (19 treelets) and on the
-glass box with a subdiv-6 sphere (923 treelets), where K5 also holds to
-K1, K6's t to K1's and K7 to K2.  K1 and K2 also run edge inputs: one
-ray, a ragged batch, all lanes dead, a table of one treelet and one of
-2,048 with a full and many empty treelets.  Every timed kernel call is printed
+(tile-union any hit) on the bench scene (19 treelets) and on the glass
+box with a subdiv-6 sphere (923 treelets), where K5 also holds to K1,
+K6's t to K1's and K7 to K2.  K1, K2, K6 and K7 also run edge inputs:
+one ray, a ragged batch, all lanes dead, a table of one treelet and one
+of 2,048 with a full and many empty treelets.  Every timed kernel call is printed
 beside its bound (`trace_bound`: the FP32 operations and bytes that its
 inputs need, over the card's peak rates) and its share of that bound.
 Four paths are driven through `render_chunk` (256x256, rr_depth 8, 2
@@ -466,19 +466,21 @@ def ptxas_report(log):
 # Registers a thread of K1-K4 may take: their launch bounds ask for two
 # blocks of 384 threads on an SM of 65,536 registers.
 REGISTER_BUDGET = 65_536 // (2 * 384)
+# The same for the tile kernels K6 and K7: four blocks of 128 threads.
+TILE_REGISTER_BUDGET = 65_536 // (4 * 128)
 
 
-def kernel_resources(info, kernel):
-    """The ptxas report of every entry whose name holds `kernel` (one of
-    K1-K4), with what exceeds the launch bounds' budget or spills said
+def kernel_resources(info, kernel, budget=REGISTER_BUDGET):
+    """The ptxas report of every entry whose name holds `kernel`, with
+    what exceeds the launch bounds' register budget or spills said
     outright."""
     rep = {name: r for name, r in info["ptxas"].items() if kernel in name}
     if not rep:
         return "not reported: the library was built by an earlier process"
     over = [n for n, r in rep.items()
-            if r.get("registers", 0) > REGISTER_BUDGET
+            if r.get("registers", 0) > budget
             or r.get("spill_store_bytes") or r.get("spill_load_bytes")]
-    return {"entries": rep, "register_budget": REGISTER_BUDGET,
+    return {"entries": rep, "register_budget": budget,
             "over_budget_or_spilling": sorted(over)}
 
 
@@ -645,13 +647,16 @@ def phase_k12_edges(scene, device):
     batch that is no multiple of the block, all lanes dead, a table of one
     treelet, and the largest table the kernels take (2,048 treelets, one
     with all K slots filled, most with none, its triangle rows read from
-    global memory where the bench table's sit in shared memory)."""
+    global memory where the bench table's sit in shared memory).  K6 and
+    K7, which take the same tables, run the same inputs against their
+    plain versions, K6's t against K1's and K7's flags against K2's."""
     from bpt_tpu_torch.accel.treelets import packed_triangles, \
         triangle_counts
     from bpt_tpu_torch.ops.intersect import MAX_TREELETS
-    from bpt_tpu_torch.ops.trace_any import any_hit, any_hit_plain
+    from bpt_tpu_torch.ops.trace_any import any_hit, any_hit_compact, \
+        any_hit_compact_plain, any_hit_plain
     from bpt_tpu_torch.ops.trace_closest import closest_hit, \
-        closest_hit_plain
+        closest_hit_plain, closest_hit_sweep, closest_hit_sweep_plain
 
     t0 = time.perf_counter()
     tg = scene.treelets
@@ -670,18 +675,32 @@ def phase_k12_edges(scene, device):
         t = tables[name]
         res = {}
         rays = _edge_rays(n, SEED + 10 + i, device, False, live_frac)
-        rep = closest_report(closest_hit(t, *rays),
-                             closest_hit_plain(t, *rays))
+        k1 = closest_hit(t, *rays)
+        rep = closest_report(k1, closest_hit_plain(t, *rays))
         res["k1"] = {"hits": int((closest_hit_plain(t, *rays)[1] >= 0).sum()),
                      "tri_mismatch": rep["tri_mismatch"],
                      "t_u_v_bit_mismatch": rep["t_u_v_bit_mismatch"]}
+        k6 = closest_hit_sweep(t, *rays)
+        rep6 = closest_report(k6, closest_hit_sweep_plain(t, *rays))
+        res["k6"] = {"tri_mismatch": rep6["tri_mismatch"],
+                     "t_u_v_bit_mismatch": rep6["t_u_v_bit_mismatch"],
+                     "t_bit_mismatch_vs_k1": bit_mismatch(k6[0], k1[0])}
         segs = _edge_rays(n, SEED + 30 + i, device, True, live_frac)
         ref = any_hit_plain(t, *segs)
+        k2 = any_hit(t, *segs)
         res["k2"] = {"occluded": int(ref.sum()),
-                     "flag_mismatch": int((any_hit(t, *segs) != ref).sum())}
+                     "flag_mismatch": int((k2 != ref).sum())}
+        k7 = any_hit_compact(t, *segs)
+        res["k7"] = {
+            "flag_mismatch": int((k7 != any_hit_compact_plain(t, *segs))
+                                 .sum()),
+            "flag_mismatch_vs_k2": int((k7 != k2).sum())}
         out[f"{name}_b{n}_live{live_frac}"] = res
         if (rep["tri_mismatch"] or any(rep["t_u_v_bit_mismatch"])
-                or res["k2"]["flag_mismatch"]):
+                or res["k2"]["flag_mismatch"] or rep6["tri_mismatch"]
+                or any(rep6["t_u_v_bit_mismatch"])
+                or res["k6"]["t_bit_mismatch_vs_k1"]
+                or any(res["k7"].values())):
             failed.append((name, n, live_frac))
     torch.cuda.synchronize()
     emit(out, t0)
@@ -691,8 +710,8 @@ def phase_k12_edges(scene, device):
         raise AssertionError(f"the edge table is not the one described: "
                              f"{limit}")
     if failed:
-        raise AssertionError(f"K1 or K2 disagrees with its plain version "
-                             f"on edge inputs {failed}")
+        raise AssertionError(f"K1, K2, K6 or K7 disagrees on edge inputs "
+                             f"{failed}")
 
 
 class _TimedBuilder:
@@ -900,7 +919,8 @@ def phase_k4(large, large_segs, bench, bench_segs, info):
     return res
 
 
-def phase_closest_kernel(phase, kernel, plain, tables, exact_vs_k1):
+def phase_closest_kernel(phase, kernel, plain, tables, exact_vs_k1,
+                         ptxas=None):
     """A closest-hit kernel (K5 or K6) against its plain version, bit for
     bit, and against K1 (the same t on every lane; with `exact_vs_k1` the
     same tri too) on each table at the slice's closest-hit shapes."""
@@ -908,6 +928,8 @@ def phase_closest_kernel(phase, kernel, plain, tables, exact_vs_k1):
 
     t0 = time.perf_counter()
     out = {"phase": phase}
+    if ptxas is not None:
+        out["ptxas"] = ptxas
     timing = None
     failed = []
     for tname, tg, rays in tables:
@@ -945,14 +967,16 @@ def phase_closest_kernel(phase, kernel, plain, tables, exact_vs_k1):
     return timing
 
 
-def phase_k7(tables):
+def phase_k7(tables, info):
     """K7 against its plain version and K2, flag for flag, on each table
     at the slice's any-hit shape."""
     from bpt_tpu_torch.ops.trace_any import any_hit, any_hit_compact, \
         any_hit_compact_plain
 
     t0 = time.perf_counter()
-    out = {"phase": "k7_any_hit_compact"}
+    out = {"phase": "k7_any_hit_compact",
+           "ptxas": kernel_resources(info, "any_hit_compact_kernel",
+                                     TILE_REGISTER_BUDGET)}
     timing = None
     failed = []
     for tname, tg, (o, d, mn, mx) in tables:
@@ -2655,12 +2679,14 @@ def _phases(device, info, mesh):
     k5 = phase_closest_kernel("k5_closest_hit_full", tc.closest_hit_full,
                               tc.closest_hit_full_plain, closest_tables,
                               exact_vs_k1=True)
-    k6 = phase_closest_kernel("k6_closest_hit_sweep", tc.closest_hit_sweep,
-                              tc.closest_hit_sweep_plain, closest_tables,
-                              exact_vs_k1=False)
+    k6 = phase_closest_kernel(
+        "k6_closest_hit_sweep", tc.closest_hit_sweep,
+        tc.closest_hit_sweep_plain, closest_tables, exact_vs_k1=False,
+        ptxas=kernel_resources(info, "closest_hit_sweep_kernel",
+                               TILE_REGISTER_BUDGET))
     del rays6, closest_tables
     k7 = phase_k7((("bench", scene.treelets_any, bench_segs[1]),
-                   ("subdiv6", scene6.treelets_any, segs6)))
+                   ("subdiv6", scene6.treelets_any, segs6)), info)
     # The renders' peak memory counts the scenes and the render only.
     del bench_rays, bench_segs, segs6, scene6
     torch.cuda.empty_cache()

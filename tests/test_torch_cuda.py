@@ -15,6 +15,7 @@ with
 """
 from __future__ import annotations
 
+import numpy as np
 import pytest
 import torch
 
@@ -670,3 +671,110 @@ def test_mesh_at_world_size_one_over_nccl(cuda_box, tmp_path):
         _assert_agree((fb, int(nr)), _pool_render(scene, cam, cfg, seed=3))
     finally:
         dist.destroy_process_group()
+
+
+def _tile_kernels_equal_plain(tg, args, seg):
+    """K6 bit-equal to its plain version with K1's t, and K7's flags equal
+    to its plain version's and K2's, on rays `args` and segments `seg`."""
+    from bpt_tpu_torch.ops.trace_any import any_hit, any_hit_compact, \
+        any_hit_compact_plain
+    from bpt_tpu_torch.ops.trace_closest import closest_hit, \
+        closest_hit_sweep, closest_hit_sweep_plain
+
+    got = closest_hit_sweep(tg, *args)
+    occ = any_hit_compact(tg, *seg)
+    torch.cuda.synchronize()
+    _bit_equal_closest(got, closest_hit_sweep_plain(tg, *args))
+    assert torch.equal(got[0].view(torch.int32),
+                       closest_hit(tg, *args)[0].view(torch.int32))
+    assert torch.equal(occ, any_hit_compact_plain(tg, *seg))
+    assert torch.equal(occ, any_hit(tg, *seg))
+    return got, occ
+
+
+@pytest.mark.parametrize("table", ["one_treelet", "limit_2048"])
+def test_tile_kernels_on_edge_tables(cuda_scene, table):
+    """K6 and K7 on a table of one treelet, and on the largest table they
+    take: 2,048 treelets, one with all 128 slots filled, most with none."""
+    import chip_smoke
+
+    from bpt_tpu_torch.ops.intersect import MAX_TREELETS
+
+    tg = chip_smoke.edge_tables(cuda_scene.treelets, MAX_TREELETS)[table]
+    got, occ = _tile_kernels_equal_plain(
+        tg, _rays(50_000, seed=70), _rays(50_000, seed=71, segment=True))
+    assert int((got[1] >= 0).sum()) > 0 and int(occ.sum()) > 0
+
+
+def test_tile_kernels_on_unions_wider_than_the_block(cuda_subdiv6):
+    """Tiles whose union holds more treelets than the block has threads
+    (128): the union is listed in several rounds and K6 sorts more keys
+    than one a thread.  Rays and segments from anywhere in the box aim at
+    points in the box of the sphere's treelets (those below the median
+    size), so a tile of them crosses hundreds of the 923."""
+    from bpt_tpu_torch.ops.intersect import slab
+
+    tg = cuda_subdiv6.treelets
+    n = 8 * 128
+    size = (tg.bmax - tg.bmin).amax(dim=1)
+    small = size <= size.median()
+    lo, hi = tg.bmin[small].amin(dim=0), tg.bmax[small].amax(dim=0)
+    o, _, mn, mx = _rays(n, seed=72)
+    gen = torch.Generator(device="cuda").manual_seed(73)
+    aim = lo + (hi - lo) * torch.rand((n, 3), generator=gen, device="cuda")
+    dist = torch.linalg.vector_norm(aim - o, dim=-1)
+    d = (aim - o) / dist[:, None]
+    args, seg = (o, d, mn, mx), (o, d, mn, dist)
+    for rays in (args, seg):
+        mask, _ = slab(tg.bmin, tg.bmax, *rays)
+        union = mask.view(n // 128, 128, -1).any(dim=1).sum(dim=1)
+        assert int(union.min()) > 128
+    got, occ = _tile_kernels_equal_plain(tg, args, seg)
+    assert int((got[1] >= 0).sum()) > 0 and 0 < int(occ.sum()) < n
+
+
+def _zero_entry_table():
+    """Two treelets that hold the same triangle (in the plane z = -0.5)
+    under triangle indices 10 and 20.  Lane 0 starts at (0, 0, 0.5) going
+    down: it lies on the top face of treelet 0's box, so its slab entry
+    there is max(-0.0, 0) = -0.0 in the plain versions, and strictly
+    inside treelet 1's box (entry +0.0).  The two entries compare equal,
+    so the lower index, treelet 0, is visited first and its triangle (10)
+    wins the exact-t tie; an order by the entries' raw bits would put
+    -0.0 after +0.0 and keep 20.  Lane 1 is dead.  K = 4, three slots
+    empty (degenerate, index 99)."""
+    k = 4
+    tri = np.array([-1.0, -1.0, -0.5, 3.0, 0.0, 0.0, 0.0, 3.0, 0.0])
+    block = np.zeros((2, 9, k), np.float32)
+    block[:, :, 0] = tri
+    tri_index = np.full((2, k), 99, np.int32)
+    tri_index[:, 0] = [10, 20]
+    bmin = np.array([[-1, -1, -1], [-1, -1, -1]], np.float32)
+    bmax = np.array([[2, 2, 0.5], [2, 2, 1]], np.float32)
+    o = np.array([[0, 0, 0.5], [0, 0, 0.5]], np.float32)
+    d = np.array([[0, 0, -1], [0, 0, -1]], np.float32)
+    mn = np.full(2, 1e-8, np.float32)
+    mx = np.array([np.inf, -1.0], np.float32)
+    return (bmin, bmax, tri_index, block), (o, d, mn, mx)
+
+
+def test_tile_kernels_on_zero_entries():
+    """The zero-entry table (_zero_entry_table) on the card: a lane
+    whose entries to two treelets are both zero, one of them -0.0.  K6
+    and K5 keep the lower-indexed treelet's triangle on the exact-t tie,
+    bit-equal to their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from bpt_tpu_torch.accel.treelets import TreeletGeom
+    from bpt_tpu_torch.ops.trace_closest import closest_hit_full, \
+        closest_hit_full_plain, closest_hit_sweep, closest_hit_sweep_plain
+
+    table, rays = _zero_entry_table()
+    tg = TreeletGeom(*(torch.from_numpy(x).cuda() for x in table))
+    rays = tuple(torch.from_numpy(x).cuda() for x in rays)
+    for kernel, plain in ((closest_hit_sweep, closest_hit_sweep_plain),
+                          (closest_hit_full, closest_hit_full_plain)):
+        got = kernel(tg, *rays)
+        torch.cuda.synchronize()
+        _bit_equal_closest(got, plain(tg, *rays))
+        assert got[1].tolist() == [10, -1]

@@ -26,6 +26,7 @@ from bpt_tpu_torch.accel.treelets import TreeletGeom
 from bpt_tpu_torch.ops import trace_any as ta
 from bpt_tpu_torch.ops import trace_closest as tc
 from bpt_tpu_torch.scene.scene import flatten_fields, scene_from_arrays
+from test_torch_cuda import _zero_entry_table
 from test_torch_trace import _assert_closest_equal
 
 B = 700
@@ -297,3 +298,28 @@ def test_sweep_follows_the_tile_order_on_a_tie():
     assert ref[0][0] == got[0][0] == lane[0][0] == full[0][0] == 5.0
     assert torch.equal(tc.closest_hit_full_plain(ttg, *_torch(*rays))[1],
                        torch.tensor([10, -1], dtype=torch.int32))
+
+
+def test_sweep_and_full_on_zero_entries():
+    """A lane whose entries to two treelets are both zero, one of them
+    -0.0: K6's and K5's plain versions match the reference's
+    trace_closest_sweep and trace_closest_pallas (interpret=True) and
+    keep the lower-indexed treelet's triangle on the exact-t tie."""
+    from bpt_tpu_torch.ops.intersect import slab
+
+    table, rays = _zero_entry_table()
+    jtg, ttg = _Table(*_jax(*table)), TreeletGeom(*_torch(*table))
+    _, entry = slab(ttg.bmin, ttg.bmax, *_torch(*rays))
+    assert entry[0].tolist() == [0.0, 0.0]
+    assert torch.signbit(entry[0]).tolist() == [True, False]
+    sweep = _np(trace_closest_sweep(jtg, *_jax(*rays), tile=128,
+                                    interpret=True))
+    full = _np(trace_closest_pallas(jtg, *_jax(*rays), interpret=True))
+    for ref, plain in ((sweep, tc.closest_hit_sweep_plain),
+                       (full, tc.closest_hit_full_plain)):
+        got = [x.numpy() for x in plain(ttg, *_torch(*rays))]
+        assert list(ref[1]) == list(got[1]) == [10, -1]
+        np.testing.assert_array_equal(got[0], ref[0])
+        np.testing.assert_array_equal(got[2], ref[2])
+        np.testing.assert_array_equal(got[3], ref[3])
+        assert got[0][0] == 1.0
