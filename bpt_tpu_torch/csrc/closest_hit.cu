@@ -73,30 +73,7 @@ closest_hit_kernel(const float* __restrict__ bmin,
     if (lane >= b) return;
     const Ray r = load_ray(ray_o, ray_d, min_t, max_t, lane);
     Best best;
-    if (r.mxt >= r.mnt) {
-      float last_e = -INFINITY;
-      int last_j = -1;
-      Candidates c;
-      do {
-        fill_candidates_grouped<true>(tab.gboxes, tab.ng, kFlatGroup,
-                                      tab.boxes, nullptr, nullptr, nt, r,
-                                      best.t, last_e, last_j, c);
-        // Visit the buffer front to back.
-        for (int v = 0; v < kCandKeys; ++v) {
-          float e;
-          int j;
-          pop_front(c, &e, &j);
-          if (j < 0 || !(e < best.t)) {
-            c.more = false;  // every candidate visited, or no nearer
-            break;
-          }
-          closest_in_rows<kResident>(tab.rows, tab.offsets[j],
-                                     tab.offsets[j + 1], r, best);
-          last_e = e;
-          last_j = j;
-        }
-      } while (c.more);
-    }
+    if (r.mxt >= r.mnt) closest_walk_flat<kResident>(tab, nt, r, best);
     store_best(lane, best, t_out, tri_out, u_out, v_out);
   }
 }

@@ -102,8 +102,8 @@ closest_hit_stream_kernel(const float* __restrict__ bmin,
             c.more = false;  // every candidate visited, or no nearer
             break;
           }
-          closest_in_treelet<true>(rows, tri_index, k, (size_t)j, r, best,
-                                   __ldg(counts + j));
+          closest_in_treelet(rows, tri_index, k, (size_t)j, r, best,
+                             __ldg(counts + j));
           last_e = e;
           last_j = j;
         }

@@ -9,8 +9,9 @@ for bit, on tables of any size, with the table taken in groups of
 `chunk_nt` consecutive treelets behind their union boxes
 (accel/treelets.py::group_boxes).  K5 (`closest_hit_full`,
 csrc/closest_hit_full.cu) replaces pallas_trace.py::trace_closest_pallas:
-K1's function, with each ray's entries computed once into a candidate
-list.  K6 (`closest_hit_sweep`, csrc/closest_hit_sweep.cu) replaces
+K1's function on K1's table (its packed rows), with each ray's treelet
+entries computed once by its warp into a list that the ray walks in
+order.  K6 (`closest_hit_sweep`, csrc/closest_hit_sweep.cu) replaces
 pallas_sweep.py::trace_closest_sweep: one visit order shared by a tile of
 SWEEP_TILE lanes, sorted in shared memory.
 
@@ -198,23 +199,15 @@ def _outputs(b, device):
             torch.empty((b,), dtype=torch.float32, device=device))
 
 
-def _launch_closest(name, tg, o, d, min_t, max_t, b, nt, k):
-    """Launch a closest-hit kernel that reads the (NT, 9, K) block (K5)."""
-    out = _outputs(b, o.device)
-    if b:
-        _build.launch(name, o.device, tg.bmin.data_ptr(), tg.bmax.data_ptr(),
-                      tg.block.data_ptr(), tg.tri_index.data_ptr(), nt, k,
-                      o.data_ptr(), d.data_ptr(), min_t.data_ptr(),
-                      max_t.data_ptr(), b, *(x.data_ptr() for x in out))
-    return out
-
-
-def _launch_packed(name, tg, o, d, min_t, max_t, b, nt):
+def _launch_packed(name, tg, o, d, min_t, max_t, b, nt, counter=None):
     """Launch a closest-hit kernel that reads the table's boxes and its
-    packed triangles (accel/treelets.py::packed_triangles): K1, K6."""
+    packed triangles (accel/treelets.py::packed_triangles): K1, K5, K6.
+    `counter`: the kernel's zeroed int32 counters (one word by default;
+    K5 takes two)."""
     out = _outputs(b, o.device)
     rows, offsets = packed_triangles(tg)
-    counter = torch.zeros((1,), dtype=torch.int32, device=o.device)
+    if counter is None:
+        counter = torch.zeros((1,), dtype=torch.int32, device=o.device)
     _build.launch(name, o.device, tg.bmin.data_ptr(), tg.bmax.data_ptr(),
                   rows.data_ptr(), offsets.data_ptr(), nt, rows.shape[0],
                   o.data_ptr(), d.data_ptr(), min_t.data_ptr(),
@@ -269,18 +262,27 @@ closest_hit_stream.launches = 0
 def closest_hit_full(tg, o, d, min_t, max_t):
     """K5, the counterpart of the TPU kernel trace_closest_pallas: K1's
     closest hit, bit for bit, with each ray's treelet entries computed
-    once into a candidate list.  At most MAX_TREELETS treelets.  Returns
-    (t, tri, u, v), each (B,)."""
+    once by its warp into a list that it walks in order.  At most
+    MAX_TREELETS treelets.  Returns (t, tri, u, v), each (B,).
+
+    After a launch, `closest_hit_full.overflow_lanes` is a (1,) int32
+    tensor on the card: the lanes of that launch whose list overflowed
+    and which took K1's walk instead (read it after a synchronize)."""
     b, nt, k = check_trace_args(tg, o, d, min_t, max_t)
     if o.device.type == "cpu":
         return closest_hit_full_plain(tg, o, d, min_t, max_t)
-    out = _launch_closest("bpt_closest_hit_full", tg, o, d, min_t, max_t, b,
-                          nt, k)
-    closest_hit_full.launches += int(b > 0)
+    if b == 0:
+        return _outputs(0, o.device)
+    counter = torch.zeros((2,), dtype=torch.int32, device=o.device)
+    out = _launch_packed("bpt_closest_hit_full", tg, o, d, min_t, max_t, b,
+                         nt, counter)
+    closest_hit_full.launches += 1
+    closest_hit_full.overflow_lanes = counter[1:]
     return out
 
 
 closest_hit_full.launches = 0
+closest_hit_full.overflow_lanes = None
 
 
 def closest_hit_sweep(tg, o, d, min_t, max_t):

@@ -168,8 +168,8 @@ POOL_LARGE = dict(width=64, light_pool=16, spp=2)
 # render_image_sharded at world size 1 (phase sharded): the bench
 # configuration cut to 4 spp.
 SHARDED_SPP = 4
-# The second table of K5-K7: more treelets than a candidate buffer (K5)
-# or a compaction round (K7) holds.
+# The second table of K5-K7: 29 runs of 32 treelets, whose packed rows
+# do not fit in shared memory.
 SUBDIV6 = dict(sphere_subdiv=6, n_treelets=923)
 # The bench scene's 19 treelets in groups of 8: three groups, the last
 # one ragged.
@@ -468,6 +468,8 @@ def ptxas_report(log):
 REGISTER_BUDGET = 65_536 // (2 * 384)
 # The same for the tile kernels K6 and K7: four blocks of 128 threads.
 TILE_REGISTER_BUDGET = 65_536 // (4 * 128)
+# The same for K5: two blocks of 256 threads.
+FULL_REGISTER_BUDGET = 65_536 // (2 * 256)
 
 
 def kernel_resources(info, kernel, budget=REGISTER_BUDGET):
@@ -923,7 +925,9 @@ def phase_closest_kernel(phase, kernel, plain, tables, exact_vs_k1,
                          ptxas=None):
     """A closest-hit kernel (K5 or K6) against its plain version, bit for
     bit, and against K1 (the same t on every lane; with `exact_vs_k1` the
-    same tri too) on each table at the slice's closest-hit shapes."""
+    same tri too) on each table at the slice's closest-hit shapes.  For
+    K5, the share of live lanes whose list overflowed (the kernel's own
+    count, `closest_hit_full.overflow_lanes`)."""
     from bpt_tpu_torch.ops.trace_closest import closest_hit
 
     t0 = time.perf_counter()
@@ -952,6 +956,10 @@ def phase_closest_kernel(phase, kernel, plain, tables, exact_vs_k1,
                      bit_mismatch(got[i][same], k1[i][same])
                      for i in (2, 3)]},
                 trace_bound(tg, args, "closest", ref))
+            overflow = getattr(kernel, "overflow_lanes", None)
+            if overflow is not None:
+                res["overflow_lanes"] = int(overflow)
+                res["overflow_share"] = int(overflow) / max(res["live"], 1)
             out[f"{tname}_{name}"] = res
             if (rep["tri_mismatch"] or any(rep["t_u_v_bit_mismatch"])
                     or res["t_bit_mismatch_vs_k1"]
@@ -2676,9 +2684,11 @@ def _phases(device, info, mesh):
     del large_rays, large_segs
     closest_tables = (("bench", scene.treelets, bench_rays[0]),
                       ("subdiv6", scene6.treelets, rays6))
-    k5 = phase_closest_kernel("k5_closest_hit_full", tc.closest_hit_full,
-                              tc.closest_hit_full_plain, closest_tables,
-                              exact_vs_k1=True)
+    k5 = phase_closest_kernel(
+        "k5_closest_hit_full", tc.closest_hit_full, tc.closest_hit_full_plain,
+        closest_tables, exact_vs_k1=True,
+        ptxas=kernel_resources(info, "closest_hit_full_kernel",
+                               FULL_REGISTER_BUDGET))
     k6 = phase_closest_kernel(
         "k6_closest_hit_sweep", tc.closest_hit_sweep,
         tc.closest_hit_sweep_plain, closest_tables, exact_vs_k1=False,

@@ -538,8 +538,9 @@ def _bit_equal_closest(got, ref):
 @pytest.mark.parametrize("table", TABLES)
 @pytest.mark.parametrize("n", [1, 1000, 65_536])
 def test_full_kernel_bit_equal_to_plain_and_k1(request, table, n):
-    """K5 (19 treelets: one candidate fill; 235: refills) against its
-    plain version and K1, bit for bit."""
+    """K5 (19 treelets: one run, the rows in shared memory; 235 and 923:
+    several runs, the rows read from device memory) against its plain
+    version and K1, bit for bit."""
     from bpt_tpu_torch.ops.trace_closest import closest_hit, \
         closest_hit_full, closest_hit_full_plain
 
@@ -756,6 +757,146 @@ def _zero_entry_table():
     mn = np.full(2, 1e-8, np.float32)
     mx = np.array([np.inf, -1.0], np.float32)
     return (bmin, bmax, tri_index, block), (o, d, mn, mx)
+
+
+def _tie_table():
+    """Two treelets that hold the same triangle (in the plane z = 0, over
+    the origin) under different triangle indices, 10 and 20.  Lane 0 comes
+    down the z axis from z = 5: it enters treelet 0 at t = 1 and treelet 1
+    at t = 4.9, so its own order visits 0 first.  Lane 1 comes down at
+    x = 5, where only treelet 1 reaches: it enters 1 at t = 0.9 and misses
+    the triangle.  The tile's minimum entries are 1 for treelet 0 and 0.9
+    for treelet 1, so the tile visits 1 first.  K = 4, three slots empty
+    (degenerate, index 99)."""
+    k = 4
+    v0 = np.array([-1.0, -1.0, 0.0])
+    e1 = np.array([3.0, 0.0, 0.0])
+    e2 = np.array([0.0, 3.0, 0.0])
+    block = np.zeros((2, 9, k), np.float32)
+    block[:, :, 0] = np.concatenate([v0, e1, e2])
+    tri_index = np.full((2, k), 99, np.int32)
+    tri_index[:, 0] = [10, 20]
+    bmin = np.array([[-1, -1, -0.1], [-1, -1, -0.1]], np.float32)
+    bmax = np.array([[2, 2, 4], [6, 2, 0.1]], np.float32)
+    o = np.array([[0, 0, 5], [5, 0, 1]], np.float32)
+    d = np.array([[0, 0, -1], [0, 0, -1]], np.float32)
+    mn = np.full(2, 1e-8, np.float32)
+    mx = np.full(2, np.inf, np.float32)
+    return (bmin, bmax, tri_index, block), (o, d, mn, mx)
+
+
+def _list_keys():
+    """The keys a lane's list holds in K5 (kListKeys of
+    csrc/closest_hit_full.cu)."""
+    import re
+
+    from bpt_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "closest_hit_full.cu").read_text()
+    return int(re.search(r"constexpr int kListKeys = (\d+);", src).group(1))
+
+
+OVERFLOW_NT = 40
+
+
+def _overflow_table(ns):
+    """A stack of OVERFLOW_NT treelets (two runs of 32, the second
+    ragged): treelet i's box is x, y in [-4, 4], z in [i, i + 1], and it
+    holds one triangle, index 100 + i, in the plane z = i + 0.5 over the
+    cell of grid point ((i % 7) - 3, (i // 7) - 3), with three pad slots
+    (index 99).  Rays go up from z = -0.5, so treelet i's entry is
+    i + 0.5, and max_t = n - 0.25 makes a ray overlap treelets 0..n-1
+    exactly.  For each n of `ns`: a ray aimed at triangle 0 (one visit),
+    one at triangle n - 2 (n - 1 visits) and one between the cells (it
+    misses after n visits); then, with max_t = inf (all OVERFLOW_NT
+    treelets), one aimed at triangle 30 and one that misses; and a dead
+    lane.  Returns (table, rays, each lane's overlapped treelets, each
+    lane's expected triangle index)."""
+    nt, k = OVERFLOW_NT, 4
+    grid = np.stack([np.arange(nt) % 7 - 3.0, np.arange(nt) // 7 - 3.0], 1)
+    block = np.zeros((nt, 9, k), np.float32)
+    block[:, 0:2, 0] = grid - 0.4
+    block[:, 2, 0] = np.arange(nt) + 0.5
+    block[:, 3, 0] = 0.8
+    block[:, 7, 0] = 0.8
+    tri_index = np.full((nt, k), 99, np.int32)
+    tri_index[:, 0] = 100 + np.arange(nt)
+    bmin = np.stack([np.full(nt, -4.0), np.full(nt, -4.0),
+                     np.arange(nt, dtype=np.float64)], 1).astype(np.float32)
+    bmax = np.stack([np.full(nt, 4.0), np.full(nt, 4.0),
+                     np.arange(nt) + 1.0], 1).astype(np.float32)
+    lanes = []  # (max_t, treelets overlapped, triangle aimed at)
+    for n in ns:
+        for aim in (0, n - 2, None):
+            lanes.append((n - 0.25, n, aim))
+    lanes += [(np.inf, nt, 30), (np.inf, nt, None), (-1.0, 0, None)]
+    o = np.zeros((len(lanes), 3), np.float32)
+    for i, (_, _, aim) in enumerate(lanes):
+        o[i, :2] = grid[0] + 0.5 if aim is None else grid[aim] - 0.2
+    o[:, 2] = -0.5
+    d = np.tile(np.array([[0, 0, 1]], np.float32), (len(lanes), 1))
+    mn = np.full(len(lanes), 1e-8, np.float32)
+    mx = np.array([m for m, _, _ in lanes], np.float32)
+    return ((bmin, bmax, tri_index, block), (o, d, mn, mx),
+            [c for _, c, _ in lanes],
+            [-1 if aim is None else 100 + aim for _, _, aim in lanes])
+
+
+K5_INPUTS = ["bench", "subdiv6", "zero_entries", "tie", "dead_lanes",
+             "no_lanes", "overflow_boundary"]
+
+
+@pytest.mark.parametrize("case", K5_INPUTS)
+def test_full_kernel_bit_equal_on_every_input(request, case):
+    """K5 bit-equal to its plain version and to K1 in (t, tri, u, v): on
+    the bench table and the 923-treelet table, the zero-entry and tie
+    tables, a batch of dead lanes, no lanes, and the overflow table with
+    rays that overlap C - 1, C and C + 1 treelets (C the keys a lane's
+    list holds) and all 40: exactly the lanes past C take K1's walk."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from bpt_tpu_torch.accel.treelets import TreeletGeom
+    from bpt_tpu_torch.ops.trace_closest import closest_hit, \
+        closest_hit_full, closest_hit_full_plain
+
+    want_tri = counts = None
+    if case in ("bench", "dead_lanes", "no_lanes"):
+        tg = request.getfixturevalue("cuda_scene").treelets
+        n = {"bench": 65_536, "dead_lanes": 5000, "no_lanes": 0}[case]
+        rays = _rays(n, seed=80)
+        if case == "dead_lanes":
+            rays = rays[:3] + (torch.full_like(rays[3], -1.0),)
+    elif case == "subdiv6":
+        tg = request.getfixturevalue("cuda_subdiv6").treelets
+        rays = _rays(65_536, seed=81)
+    else:
+        if case == "overflow_boundary":
+            c = _list_keys()
+            table, rays, counts, want_tri = _overflow_table([c - 1, c, c + 1])
+        else:
+            table, rays = {"zero_entries": _zero_entry_table,
+                           "tie": _tie_table}[case]()
+            want_tri = [10, -1]
+        tg = TreeletGeom(*(torch.from_numpy(x).cuda() for x in table))
+        rays = tuple(torch.from_numpy(x).cuda() for x in rays)
+    launches = closest_hit_full.launches
+    got = closest_hit_full(tg, *rays)
+    ref = closest_hit_full_plain(tg, *rays)
+    k1 = closest_hit(tg, *rays)
+    torch.cuda.synchronize()
+    b = rays[0].shape[0]
+    assert closest_hit_full.launches == launches + int(b > 0)
+    _bit_equal_closest(got, ref)
+    _bit_equal_closest(got, k1)
+    if want_tri is not None:
+        assert got[1].tolist() == want_tri
+    if counts is not None:
+        over = sum(n > _list_keys() for n in counts)
+        assert int(closest_hit_full.overflow_lanes) == over > 0
+    if case == "dead_lanes":
+        assert int((got[1] >= 0).sum()) == 0
+    elif case in ("bench", "subdiv6"):
+        assert int((got[1] >= 0).sum()) > 0
 
 
 def test_tile_kernels_on_zero_entries():

@@ -5,7 +5,8 @@ accel/traverse.py and its Pallas kernels trace_closest_pallas,
 trace_closest_sweep and trace_any_compact, run as its own tests run them
 on the CPU (interpret=True).  Inputs are tests/test_pallas.py's glass box
 at subdiv 2 (7 treelets), B = 700 (tiles padded) and its three ray cases,
-with every fifth lane dead."""
+with every fifth lane dead; and constructed tables (ties, zero entries,
+rays around the length of K5's lists)."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -26,7 +27,8 @@ from bpt_tpu_torch.accel.treelets import TreeletGeom
 from bpt_tpu_torch.ops import trace_any as ta
 from bpt_tpu_torch.ops import trace_closest as tc
 from bpt_tpu_torch.scene.scene import flatten_fields, scene_from_arrays
-from test_torch_cuda import _zero_entry_table
+from test_torch_cuda import (_list_keys, _overflow_table, _tie_table,
+                             _zero_entry_table)
 from test_torch_trace import _assert_closest_equal
 
 B = 700
@@ -256,32 +258,6 @@ class _Table(NamedTuple):
     block: object
 
 
-def _tie_table():
-    """Two treelets that hold the same triangle (in the plane z = 0, over
-    the origin) under different triangle indices, 10 and 20.  Lane 0 comes
-    down the z axis from z = 5: it enters treelet 0 at t = 1 and treelet 1
-    at t = 4.9, so its own order visits 0 first.  Lane 1 comes down at
-    x = 5, where only treelet 1 reaches: it enters 1 at t = 0.9 and misses
-    the triangle.  The tile's minimum entries are 1 for treelet 0 and 0.9
-    for treelet 1, so the tile visits 1 first.  K = 4, three slots empty
-    (degenerate, index 99)."""
-    k = 4
-    v0 = np.array([-1.0, -1.0, 0.0])
-    e1 = np.array([3.0, 0.0, 0.0])
-    e2 = np.array([0.0, 3.0, 0.0])
-    block = np.zeros((2, 9, k), np.float32)
-    block[:, :, 0] = np.concatenate([v0, e1, e2])
-    tri_index = np.full((2, k), 99, np.int32)
-    tri_index[:, 0] = [10, 20]
-    bmin = np.array([[-1, -1, -0.1], [-1, -1, -0.1]], np.float32)
-    bmax = np.array([[2, 2, 4], [6, 2, 0.1]], np.float32)
-    o = np.array([[0, 0, 5], [5, 0, 1]], np.float32)
-    d = np.array([[0, 0, -1], [0, 0, -1]], np.float32)
-    mn = np.full(2, 1e-8, np.float32)
-    mx = np.full(2, np.inf, np.float32)
-    return (bmin, bmax, tri_index, block), (o, d, mn, mx)
-
-
 def test_sweep_follows_the_tile_order_on_a_tie():
     """On an exact-t tie between treelets, K6 (port and reference) keeps
     the triangle of the treelet its tile visited first; K1 and K5 keep the
@@ -323,3 +299,23 @@ def test_sweep_and_full_on_zero_entries():
         np.testing.assert_array_equal(got[2], ref[2])
         np.testing.assert_array_equal(got[3], ref[3])
         assert got[0][0] == 1.0
+
+
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+def test_full_plain_matches_pallas_full_at_the_list_length(delta):
+    """The overflow table (_overflow_table) with rays that overlap C - 1,
+    C and C + 1 treelets, C the keys a lane's list holds in K5, and rays
+    that overlap all 40: K5's plain version against the reference's
+    trace_closest_pallas (interpret=True), and each lane's hit the
+    triangle it aims at."""
+    from bpt_tpu_torch.ops.intersect import slab
+
+    n = _list_keys() + delta
+    table, rays, counts, tri = _overflow_table([n])
+    jtg, ttg = _Table(*_jax(*table)), TreeletGeom(*_torch(*table))
+    mask, _ = slab(ttg.bmin, ttg.bmax, *_torch(*rays))
+    assert mask.sum(dim=1).tolist() == counts
+    ref = _np(trace_closest_pallas(jtg, *_jax(*rays), interpret=True))
+    got = [x.numpy() for x in tc.closest_hit_full_plain(ttg, *_torch(*rays))]
+    _assert_closest_equal(*ref, *got, rays[3] >= rays[2])
+    assert got[1].tolist() == ref[1].tolist() == tri
