@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from ..telemetry import spanned
+
 # Stable purpose tags (same values as the reference package).
 EMITTER_SELECT = 1
 EMITTER_POSITION = 2
@@ -70,6 +72,7 @@ def key(seed: int, device="cuda"):
                         dtype=torch.int64, device=device)
 
 
+@spanned("rng")
 def fold_in(keys, data):
     """`jax.random.fold_in` over a (..., 2) key tensor; `data` is an int or
     an integer tensor broadcastable against keys[..., 0]."""
@@ -105,6 +108,7 @@ def _bits_to_unit(bits):
     return torch.clamp_min(f - 1.0, 0.0)
 
 
+@spanned("rng")
 def uniform1(keys):
     """One U[0,1) float per lane key -> (B,)."""
     zero = torch.zeros_like(keys[..., 0])
@@ -112,6 +116,7 @@ def uniform1(keys):
     return _bits_to_unit(y1 ^ y2)
 
 
+@spanned("rng")
 def uniform2(keys):
     """U[0,1)^2 per lane key -> (B, 2)."""
     k1 = keys[..., 0:1]

@@ -21,6 +21,7 @@ from typing import Dict
 
 import torch
 
+from .. import telemetry
 from ..integrators.bdpt import BDPTConfig, render_chunk
 from ..scene.scene import SceneData
 
@@ -65,12 +66,13 @@ def loss_and_grad(params, scene, cam_consts, cfg: BDPTConfig, key,
     entry of `params`, zeros where the entry does not reach the loss (as
     `jax.value_and_grad` returns them)."""
     leaves = {f: p.detach().requires_grad_(True) for f, p in params.items()}
-    with torch.enable_grad():
+    with telemetry.span("diff.forward"), torch.enable_grad():
         loss = image_loss(leaves, scene, cam_consts, cfg, key, spp_chunk,
                           target_fb)
     inputs = list(leaves.values())
-    grads = (torch.autograd.grad(loss, inputs, allow_unused=True)
-             if loss.requires_grad else [None] * len(inputs))
+    with telemetry.span("diff.backward"):
+        grads = (torch.autograd.grad(loss, inputs, allow_unused=True)
+                 if loss.requires_grad else [None] * len(inputs))
     return loss.detach(), {
         f: torch.zeros_like(p) if g is None else g
         for (f, p), g in zip(leaves.items(), grads)}

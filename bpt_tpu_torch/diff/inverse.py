@@ -13,6 +13,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from .. import telemetry
 from ..core import rng
 from ..integrators.bdpt import BDPTConfig
 from ..scene.scene import SceneData
@@ -64,14 +65,15 @@ def recover_materials(
         k = rng.fold_in(key, it)
         loss, g = loss_and_grad(params, scene, cam_consts, cfg, k,
                                 spp_chunk, target_fb)
-        losses.append(float(loss))
-        for f in fields:
-            m[f] = b1 * m[f] + (1 - b1) * g[f]
-            v[f] = b2 * v[f] + (1 - b2) * g[f] ** 2
-            mh = m[f] / (1 - b1 ** (it + 1))
-            vh = v[f] / (1 - b2 ** (it + 1))
-            params[f] = torch.clamp_min(
-                params[f] - lr * mh / (torch.sqrt(vh) + eps), 0.0)
+        with telemetry.span("diff.update"):
+            losses.append(float(loss))
+            for f in fields:
+                m[f] = b1 * m[f] + (1 - b1) * g[f]
+                v[f] = b2 * v[f] + (1 - b2) * g[f] ** 2
+                mh = m[f] / (1 - b1 ** (it + 1))
+                vh = v[f] / (1 - b2 ** (it + 1))
+                params[f] = torch.clamp_min(
+                    params[f] - lr * mh / (torch.sqrt(vh) + eps), 0.0)
         if callback:
             callback(it, float(loss), params)
     return InverseResult(params=params, losses=losses, iterations=iterations)

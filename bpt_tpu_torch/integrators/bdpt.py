@@ -42,6 +42,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import telemetry
 from ..accel.api import Hit, trace_any, trace_closest
 from ..bsdf import bsdf
 from ..core import rng, warp
@@ -626,6 +627,7 @@ def eye_subpath_walk(scene, cam_consts, cfg: BDPTConfig, lkeys, primary_d,
     return carry[-2], carry[-1]
 
 
+@telemetry.spanned("bdpt.walks")
 def fused_subpath_walks(scene, cam_consts, cfg: BDPTConfig, lkeys, b,
                         primary_d, primary_alive):
     """Both subpath walks of BDPT mode in one loop over depths, visibility
@@ -725,6 +727,7 @@ def _pair_rows(sides: _PairSides, rows: slice):
     return c_li, c_ok, es(ev.p).expand(shape), lv.p[None].expand(shape)
 
 
+@telemetry.spanned("bdpt.connect")
 def _mega_connect(scene, cam_consts, cfg: BDPTConfig,
                   eye_slots: LightVertexSlots,
                   light_slots: LightVertexSlots,
@@ -945,10 +948,11 @@ def render_sample(scene, cam_consts, cfg: BDPTConfig, key, pixel_idx,
     li = torch.where(primary_alive[..., None], li, torch.zeros_like(li))
 
     # index_add_ on CUDA accumulates with atomics in run-dependent order.
-    fb.index_add_(0, pixel_idx.long(), li / cfg.spp)
-    if splat_pix is not None and splat_pix.numel():
-        fb.index_add_(0, splat_pix.reshape(-1).long(),
-                      splat_rgb.reshape(-1, 3))
+    with telemetry.span("bdpt.splat"):
+        fb.index_add_(0, pixel_idx.long(), li / cfg.spp)
+        if splat_pix is not None and splat_pix.numel():
+            fb.index_add_(0, splat_pix.reshape(-1).long(),
+                          splat_rgb.reshape(-1, 3))
     return fb[: w * h], nrays
 
 
@@ -1027,6 +1031,7 @@ def _blocked_pixel_order(w: int, h: int, device, bs: int = 16):
     return idx.permute(0, 2, 1, 3).reshape(-1)
 
 
+@telemetry.spanned("bdpt.render_chunk")
 def render_chunk(scene, cam_consts, cfg: BDPTConfig, key, spp_chunk: int = 1,
                  sample_offset: int = 0, samples_per_batch: int = 1):
     """Render `spp_chunk` full-image samples into one framebuffer.
@@ -1052,8 +1057,9 @@ def render_chunk(scene, cam_consts, cfg: BDPTConfig, key, spp_chunk: int = 1,
     for bi in range(spp_chunk // sb):
         sids = sample_offset + bi * sb + torch.arange(sb, device=dev)
         pixel_idx_t, lkeys = sample_lane_keys(key, pixel_idx, sids)
-        fb_s, nr = render_sample(scene, cam_consts, cfg, key, pixel_idx_t,
-                                 lkeys=lkeys)
+        with telemetry.span("bdpt.batch"):
+            fb_s, nr = render_sample(scene, cam_consts, cfg, key,
+                                     pixel_idx_t, lkeys=lkeys)
         fb = fb + fb_s
         nrays = nrays + nr
     return fb, nrays

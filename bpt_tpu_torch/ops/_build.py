@@ -26,6 +26,8 @@ from pathlib import Path
 
 import torch
 
+from .. import telemetry
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -155,12 +157,13 @@ def library() -> KernelLibrary:
     global _library
     if _library is not None:
         return _library
-    out = BUILD_DIR / f"libbpt_kernels_{_digest()}.so"
-    log = ""
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        log = _compile_and_link(out)
-    _library = KernelLibrary(out, log)
+    with telemetry.timed("setup.kernel_library_s"):
+        out = BUILD_DIR / f"libbpt_kernels_{_digest()}.so"
+        log = ""
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            log = _compile_and_link(out)
+        _library = KernelLibrary(out, log)
     return _library
 
 

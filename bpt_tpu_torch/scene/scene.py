@@ -24,6 +24,7 @@ from typing import Dict, Iterator, List, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..accel.build import LEAF_SIZE, build_bvh
 from ..accel.treelets import (TraceGeom, TreeletGeom, build_treelets,
                               make_treelet_geom)
@@ -157,6 +158,7 @@ def _material_table(obj: ObjData, device) -> MaterialTable:
         kind, diffuse, specular, emission, shininess, ior, transmittance)))
 
 
+@telemetry.timed("setup.scene_build_s")
 def build_scene(obj: ObjData, device, tex_dir: str = ""
                 ) -> tuple[SceneData, SceneMeta]:
     """Flatten an ObjData into (SceneData on `device`, SceneMeta)."""
