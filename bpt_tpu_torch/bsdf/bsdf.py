@@ -25,6 +25,7 @@ from ..core.math import (
     make_frame,
     reflect_local,
 )
+from ..ops.gather import gather_rows
 
 # Material kinds (MTL illum map, reference: src/core/renderer.cpp:258-271).
 DIFFUSE = 0   # illum 7
@@ -74,8 +75,12 @@ def gather_lane(mat: MaterialTable, mid, kd_override=None) -> LaneMaterial:
     """Gather per-lane materials; kd_override is the textured diffuse
     (scene/textures.py) replacing the constant Kd."""
     mid = mid.long()
-    kd = mat.diffuse[mid] if kd_override is None else kd_override
-    ks = mat.specular[mid]
+    if kd_override is None:
+        kd, ks, transmittance = gather_rows(
+            (mat.diffuse, mat.specular, mat.transmittance), mid)
+    else:
+        kd = kd_override
+        ks, transmittance = gather_rows((mat.specular, mat.transmittance), mid)
     max_v = torch.amax(kd + ks, dim=-1)
     scale = torch.where(max_v > 1.0, 0.99 / torch.clamp_min(max_v, 1e-12),
                         torch.ones_like(max_v))
@@ -88,7 +93,7 @@ def gather_lane(mat: MaterialTable, mid, kd_override=None) -> LaneMaterial:
         ks=ks,
         shininess=mat.shininess[mid],
         ior=mat.ior[mid],
-        transmittance=mat.transmittance[mid],
+        transmittance=transmittance,
         scale=scale,
         spec_weight=spec_weight,
     )
@@ -102,7 +107,7 @@ def is_delta(lane: LaneMaterial):
 def emission(mat: MaterialTable, mid):
     """getEmission by material id (reference:
     src/core/integrator.cpp:41-44)."""
-    return mat.emission[mid.long()]
+    return gather_rows((mat.emission,), mid)[0]
 
 
 # ---------------------------------------------------------------------------

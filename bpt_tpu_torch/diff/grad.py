@@ -23,6 +23,7 @@ import torch
 
 from .. import telemetry
 from ..integrators.bdpt import BDPTConfig, render_chunk
+from ..ops.gather import gather_rows
 from ..scene.scene import SceneData
 
 # Material fields exposed as differentiable parameters.
@@ -40,7 +41,7 @@ def apply_params(scene: SceneData, params: Dict[str, torch.Tensor]
     # emission, so emission gradients flow through the light subpaths'
     # throughput and NEE, not only through the s=0 technique.
     emitters = scene.emitters._replace(
-        radiance=mat.emission[scene.emitters.mat_id.long()])
+        radiance=gather_rows((mat.emission,), scene.emitters.mat_id)[0])
     return scene._replace(mat=mat, emitters=emitters)
 
 

@@ -60,6 +60,7 @@ from ..core.math import (
     luminance,
     make_frame,
 )
+from ..ops.gather import gather_rows
 from ..scene.textures import albedo_at
 from . import mis as mis_fn
 from .common import (
@@ -543,7 +544,8 @@ def _eye_post(scene, cfg: BDPTConfig, lk_eye, defer_connect, carry,
     elif cfg.mode != "light_trace":  # the light tracer has no s=0
         em_id = torch.clamp_min(scene.shape_emitter[it.shape_id.long()],
                                 0).long()
-        contrib = scene.emitters.radiance[em_id] * throughput
+        (radiance,) = gather_rows((scene.emitters.radiance,), em_id)
+        contrib = radiance * throughput
         add = hit_emitter
         if cfg.mode == "bdpt":
             em_area = scene.emitters.area[em_id]

@@ -13,6 +13,7 @@ import torch
 from ..accel.api import Hit, trace_closest
 from ..core import rng, warp
 from ..core.math import barycentric, frame_to_local, make_frame, normalize
+from ..ops.gather import gather_rows
 from ..scene.textures import albedo_at
 
 
@@ -99,13 +100,13 @@ def sample_emitter_position(scene, lkeys) -> EmitterSample:
         pos=pos,
         normal=n,
         pos_pdf=1.0 / scene.emitters.area[em],
-        radiance=scene.emitters.radiance[em],
+        radiance=gather_rows((scene.emitters.radiance,), em)[0],
     )
 
 
 def emission_at(scene, mat_id):
     """getEmission (reference: integrator.cpp:41-44)."""
-    return scene.mat.emission[mat_id.long()]
+    return gather_rows((scene.mat.emission,), mat_id)[0]
 
 
 def textured_kd(scene, it: Interaction):

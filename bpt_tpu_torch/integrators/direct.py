@@ -31,6 +31,7 @@ from ..core.math import (
     make_frame,
     normalize,
 )
+from ..ops.gather import gather_rows
 from .common import (emission_at, make_interaction, primary_trace,
                      textured_kd)
 from .path import balance_heuristic
@@ -93,7 +94,7 @@ def _select_emitter_sphere(scene, lights, u):
     em_id = torch.clamp_max((u * n).to(torch.int32), n - 1)
     em = em_id.long()
     return (em_id, torch.full_like(u, 1.0 / n), lights.center[em],
-            lights.radius[em], scene.emitters.radiance[em],
+            lights.radius[em], gather_rows((scene.emitters.radiance,), em)[0],
             scene.emitters.shape_id[em])
 
 

@@ -31,6 +31,7 @@ from ..core.math import (
     make_frame,
     reflect_local,
 )
+from ..ops.gather import gather_rows
 from .common import primary_trace, textured_kd
 
 
@@ -82,8 +83,8 @@ def render_sample_misc(scene, first_light_pos, first_light_intensity,
         wi_l = frame_to_local(it.frame_ns, wi_w)
         occ = trace_any(scene, it.p, wi_w, EPSILON, torch.sqrt(d2) - 1e-4)
         kd_ov = textured_kd(scene, it)
-        albedo = (scene.mat.diffuse[it.mat_id.long()] if kd_ov is None
-                  else kd_ov)
+        albedo = (gather_rows((scene.mat.diffuse,), it.mat_id)[0]
+                  if kd_ov is None else kd_ov)
         li = (albedo * INV_PI * torch.clamp_min(wi_l[..., 2:3], 0.0)
               * first_light_intensity / d2[..., None])
         li = torch.where(occ[..., None], torch.zeros_like(li), li)

@@ -33,7 +33,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("closest_hit.cu", "any_hit.cu", "closest_hit_stream.cu",
            "any_hit_stream.cu", "closest_hit_full.cu",
-           "closest_hit_sweep.cu", "any_hit_compact.cu")
+           "closest_hit_sweep.cu", "any_hit_compact.cu",
+           "gather_backward.cu")
 HEADERS = ("intersect.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
@@ -71,6 +72,10 @@ _SIGNATURES = {
     # max_t, b, occ, counter, stream
     "bpt_any_hit_stream": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
                            _P, _P, _I, _P, _P, _P),
+    # ids, ids_64, n, m, n_tables, grads (array of pointers), cols (int
+    # array), blocks, partials, out, stream
+    "bpt_gather_rows_backward": (_P, _I, _I, _I, _I, _P, _P, _I, _P, _P,
+                                 _P),
 }
 
 

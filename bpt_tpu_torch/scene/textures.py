@@ -17,6 +17,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..ops.gather import gather_rows
+
 
 def load_ppm(path: str) -> np.ndarray:
     """Binary P6 PPM -> (H, W, 3) float32, gamma-expanded + v-flipped."""
@@ -229,5 +231,5 @@ def albedo_at(scene, tri, u, v):
     y = torch.minimum(torch.clamp_min((st[:, 1] * h).to(torch.int32), 0),
                       h - 1)
     texel = scene.tex_atlas[tex_c, y.long(), x.long()]
-    kd = scene.mat.diffuse[mid]
+    kd = gather_rows((scene.mat.diffuse,), mid)[0]
     return torch.where(has[:, None], texel, kd)

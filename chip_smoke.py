@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py
 
-Builds the port's seven CUDA kernels from bpt_tpu_torch/csrc/ and checks
-each one against its plain PyTorch version at the main paths' shapes:
+Builds the port's CUDA kernels from bpt_tpu_torch/csrc/, the seven trace
+kernels and G1 (the gathers' backward), and checks each one against its
+plain PyTorch version at the main paths' shapes:
 K1-K4 as the routes of `accel/api.py` use them (K3 and K4 also against
 K1's and K2's plain versions, whose functions they compute), and K1, K2,
 K5 (full-table closest hit), K6 (tile-sweep closest hit) and K7
@@ -68,9 +69,10 @@ Differentiation and the realtime loop run them as well:
   * `grad`: tests/test_grad.py's checks on the glass box at 64x64 (4
     spp, rr_depth 3, chunks of 2) through K1/K2: every material field's
     gradient finite in bdpt, path_trace, light_trace and Russian-roulette
-    mode and held to the gradient through the plain versions within 1e-4
-    of its norm, autograd against central finite differences (eps 1e-2)
-    on diffuse[0,0] and emission[5,1]; the forward and backward walls
+    mode and held to the gradient through the plain versions (of the
+    trace kernels and of G1) within 1e-4 of its norm, autograd against
+    central finite differences (eps 1e-2) on diffuse[0,0] and
+    emission[5,1]; the forward and backward walls
     and peak memory of a bench chunk (256x256, rr8, 2 samples in one
     batch); `grad_large`: the same hold to the plain versions on the
     large scene (64x64, 1 spp) through K3/K4;
@@ -78,6 +80,11 @@ Differentiation and the realtime loop run them as well:
     spp 2, rr_depth 2) for 10 iterations of recover_materials: losses,
     step time, peak memory and one profiled step; the loss must fall and
     every gradient be finite;
+  * `gather`: G1 on the calls of one config #5 descent step, held to a
+    float64 sum and to its plain version (index_add_), bit-identical from
+    call to call, and timed beside its plain version, autograd's default
+    backward of `table[ids]` (index_put_ with accumulate) and the bound
+    of the bytes it reads;
   * `realtime`: realtime.py's run_realtime for the normal, simple, ssao
     and gi passes at 256x256 (ms a frame, frames/s, launches a frame),
     simple held to its frames through the plain versions (0 pixels off),
@@ -1107,6 +1114,7 @@ def _identity_layout(o, d, min_t, max_t, bounds=None, kind="segment"):
 
 
 def _counters():
+    from bpt_tpu_torch.ops import gather
     from bpt_tpu_torch.ops import trace_any as ta
     from bpt_tpu_torch.ops import trace_closest as tc
 
@@ -1116,11 +1124,12 @@ def _counters():
                 "k4_any_hit_stream": ta.any_hit_stream,
                 "k5_closest_hit_full": tc.closest_hit_full,
                 "k6_closest_hit_sweep": tc.closest_hit_sweep,
-                "k7_any_hit_compact": ta.any_hit_compact}
+                "k7_any_hit_compact": ta.any_hit_compact,
+                "g1_gather_rows_backward": gather.gather_rows_backward}
     plains = (tc.closest_hit_plain, ta.any_hit_plain,
               tc.closest_hit_stream_plain, ta.any_hit_stream_plain,
               tc.closest_hit_full_plain, tc.closest_hit_sweep_plain,
-              ta.any_hit_compact_plain)
+              ta.any_hit_compact_plain, gather.gather_rows_backward_plain)
     return launches, plains
 
 
@@ -2311,23 +2320,30 @@ REALTIME = dict(width=256, frames=16, gi_frames=3, plain_frames=2,
 
 def _grad_case(scene, cc, cfg, key, spp_chunk, routes, used):
     """loss_and_grad through the kernels (launch counts reset just before
-    and read just after, checked against `used`) and through the plain
-    versions `routes`; each field's gradient held to the plain one within
-    GRAD["rel_to_plain"] of its norm.  Returns (the case's line, its
-    launches, the kernels' (loss, grads))."""
+    and read just after, checked against `used` and G1) and through the
+    plain versions `routes` and G1's plain version; each field's gradient
+    held to the plain one within GRAD["rel_to_plain"] of its norm.
+    Returns (the case's line, its launches, the kernels' (loss,
+    grads))."""
     from unittest import mock
 
     import numpy as np
 
     from bpt_tpu_torch.accel import api
     from bpt_tpu_torch.diff.grad import extract_params, loss_and_grad
+    from bpt_tpu_torch.ops import gather
+
+    used = (*used, "g1_gather_rows_backward")
 
     params = extract_params(scene)
     target = torch.zeros((cfg.width * cfg.height, 3), device=cc["o"].device)
     (loss, g), _, wall, launches, plain_calls, peak = counted(
         lambda: (loss_and_grad(params, scene, cc, cfg, key, spp_chunk,
                                target), 0))
-    with mock.patch.multiple(api, **routes):
+    with mock.patch.multiple(api, **routes), mock.patch.object(
+            gather, "gather_rows_backward",
+            lambda ids, grads, m: gather.gather_rows_backward_plain(
+                ids.long(), grads, m)):
         loss_p, g_p = loss_and_grad(params, scene, cc, cfg, key, spp_chunk,
                                     target)
     rel = {}
@@ -2509,15 +2525,98 @@ def phase_inverse(device, smi):
     (report, _, wall, launches, plain_calls, _) = counted(
         lambda: (inverse_recover.run(device=device, profile=_profile_run,
                                      **INVERSE), 0))
-    if plain_calls or min(launches["k1_closest_hit"],
-                          launches["k2_any_hit"]) <= 0 or any(
-            n for k, n in launches.items()
-            if k not in ("k1_closest_hit", "k2_any_hit")):
+    used = ("k1_closest_hit", "k2_any_hit", "g1_gather_rows_backward")
+    if plain_calls or min(launches[k] for k in used) <= 0 or any(
+            n for k, n in launches.items() if k not in used):
         raise AssertionError(f"inverse launched {launches}, plain calls "
                              f"{plain_calls}")
     emit({"phase": "inverse", "nvidia_smi": smi, "wall_s": wall,
           "launches": launches, **report}, t0)
     return launches
+
+
+# G1 on one config #5 descent step's calls (phase gather).  Each lane's
+# gradient reaches its row's sum through at most about 60 float32
+# additions at 3M lanes (the warp's tree, the warp's row, the block's
+# warps, the blocks, the final butterfly): under 60 x 2^-24 < 4e-6 of the
+# row's sum of |g| off a float64 sum, the tight hold.  The plain version
+# adds a row's 1,048,576 lanes one at a time with atomics, in any order:
+# it read 9.9e-4 of that sum off G1 (and so off float64) on an H100, so
+# the hold to it is 1e-2.
+GATHER = dict(res=1024, tol_exact=4e-6, tol_plain=1e-2)
+
+
+def phase_gather(device, smi):
+    """G1 (csrc/gather_backward.cu through ops/gather.py) on the calls of
+    one config #5 descent step (probes/gather_backward.py: 1024x1024, 2
+    spp, rr_depth 2), replayed with the launch counts reset just before:
+    each call's sums held to a float64 sum and to the plain version
+    (index_add_) and bit-identical on a second call; device ms over the
+    step's calls of G1, of the plain version and of autograd's default
+    backward of `table[ids]` (index_put_ with accumulate), beside the
+    bound of the bytes they read."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "probes"))
+    import gather_backward as probe
+
+    from bpt_tpu_torch.ops import gather
+
+    t0 = time.perf_counter()
+    calls = probe.step_calls(GATHER["res"], device)
+    torch.cuda.synchronize()
+    reset_counts()
+    got = [gather.gather_rows_backward(*c) for c in calls]
+    torch.cuda.synchronize()
+    launches, plain_calls = read_counts()
+    again = [gather.gather_rows_backward(*c) for c in calls]
+    identical = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                    for x, y in zip(got, again) for a, b in zip(x, y))
+    # The largest |difference| over a row's sum of |g|: G1 against float64,
+    # G1 against the plain version, the plain version against float64.
+    errs = {"exact": 0.0, "plain": 0.0, "plain_exact": 0.0}
+    max_abs = 0.0
+    for (ids, grads, m), sums in zip(calls, got):
+        plain = gather.gather_rows_backward_plain(ids.long(), grads, m)
+        for g, k, p in zip(grads, sums, plain):
+            exact = torch.zeros((m, g.shape[1]), dtype=torch.float64,
+                                device=device).index_add_(0, ids.long(),
+                                                          g.double())
+            scale = torch.zeros_like(exact).index_add_(0, ids.long(),
+                                                       g.double().abs())
+            max_abs = max(max_abs, float((k - p).abs().max()))
+            for name, d in (("exact", k.double() - exact),
+                            ("plain", k.double() - p.double()),
+                            ("plain_exact", p.double() - exact)):
+                d = d.abs()
+                errs[name] = max(errs[name], float(
+                    torch.where(scale > 0, d / scale, d).max()))
+    timing = probe.compare(calls)
+    out = {"phase": "gather", "config": f"config #5 step {GATHER['res']}x"
+           f"{GATHER['res']} spp 2 rr2", "nvidia_smi": smi,
+           "calls": len(calls), "launches": launches,
+           "plain_calls_on_cuda": plain_calls,
+           "lanes_per_call": [c[0].numel() for c in calls],
+           "tables_per_call": [len(c[1]) for c in calls],
+           "bit_identical": identical,
+           "max_rel_err_vs_float64": errs["exact"],
+           "max_rel_err_vs_plain": errs["plain"],
+           "plain_max_rel_err_vs_float64": errs["plain_exact"],
+           "max_abs_err": max_abs,
+           **timing}
+    emit(out, t0)
+    if (plain_calls or not identical or launches["g1_gather_rows_backward"]
+            != sum(2 if c[0].numel() else 1 for c in calls)
+            or any(n for k, n in launches.items()
+                   if k != "g1_gather_rows_backward")
+            or errs["exact"] > GATHER["tol_exact"]
+            or errs["plain"] > GATHER["tol_plain"]):
+        raise AssertionError(f"gather: G1 failed its checks {out}")
+    del calls, got, again
+    torch.cuda.empty_cache()
+    return {"launches_per_step": launches["g1_gather_rows_backward"],
+            "max_abs_err": max_abs, "ms": timing["kernel_ms"],
+            "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
+            "library_ms": timing["library_ms"]}
 
 
 def phase_realtime(scene, meta, cam, device, smi):
@@ -2741,11 +2840,15 @@ def _phases(device, info, mesh):
     phase_cli(smi)
     add_launches(k12, phase_grad(scene, cam, device, smi))
     add_launches(k12, phase_inverse(device, smi))
+    g1 = phase_gather(device, smi)
     add_launches(k12, phase_realtime(scene, meta, cam, device, smi))
     # The kernels line counts K1-K4 over every path that routes to them.
     launches.update({k: k12[k] for k in ("k1_closest_hit", "k2_any_hit")})
     launches.update({k: k34[k] for k in ("k3_closest_hit_stream",
                                          "k4_any_hit_stream")})
+    # G1 runs in every differentiated render: grad, grad_large, inverse.
+    launches["g1_gather_rows_backward"] = (
+        k12["g1_gather_rows_backward"] + k34["g1_gather_rows_backward"])
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
@@ -2779,6 +2882,17 @@ def _phases(device, info, mesh):
         if "flag_mismatch" in res:
             row["flag_mismatch"] = res["flag_mismatch"]
         rows.append(row)
+    # G1 replaces no TPU kernel; its library yardstick is autograd's own
+    # backward of `table[ids]`.  Its times are over one config #5 step's
+    # calls; `launches` counts device kernels (two a call) over the paths.
+    rows.append({"name": "gather_rows_backward", "route": "cuda",
+                 "source": "bpt_tpu_torch/csrc/gather_backward.cu",
+                 "replaces": None, "launches": launches[
+                     "g1_gather_rows_backward"],
+                 "launches_per_step": g1["launches_per_step"],
+                 "max_abs_err": g1["max_abs_err"], "ms": g1["ms"],
+                 "plain_ms": g1["plain_ms"], "bound_ms": g1["bound_ms"],
+                 "bound_by": "bytes", "library_ms": g1["library_ms"]})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
