@@ -16,13 +16,24 @@ The arithmetic follows JAX 0.9's `threefry2x32` implementation with
                        draw hashes the counter (0, i);
   * bits -> float    = bitcast((bits >> 9) | 0x3F800000) - 1.
 
-uint32 arithmetic runs in int64 with a 32-bit mask after every add and
-shift, because PyTorch's uint32 support for shifts and adds is partial.
+`fold_in`, `uniform1` and `uniform2` route by the keys' device: CUDA keys
+take the kernel of bpt_tpu_torch/csrc/threefry.cu (`ops/threefry.py`), one
+launch a call; CPU keys take the plain versions `fold_in_plain`,
+`uniform1_plain` and `uniform2_plain`, which the CPU tests hold to
+`jax.random` bit for bit and the card's tests hold the kernel to.  They
+run uint32 arithmetic in int64 with a 32-bit mask after every add and
+shift, because PyTorch's uint32 support for shifts and adds is partial:
+about 170 tensor operations a call.  A plain version counts its calls on
+CUDA tensors in `.cuda_calls` (a comparison harness, never a route); the
+counters `rng.calls.plain` and `rng.calls.kernel` add one a call of either
+route while a profiler runs.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import telemetry
+from ..ops import threefry
 from ..telemetry import spanned
 
 # Stable purpose tags (same values as the reference package).
@@ -72,10 +83,15 @@ def key(seed: int, device="cuda"):
                         dtype=torch.int64, device=device)
 
 
-@spanned("rng")
-def fold_in(keys, data):
-    """`jax.random.fold_in` over a (..., 2) key tensor; `data` is an int or
-    an integer tensor broadcastable against keys[..., 0]."""
+def _count_plain(fn, keys):
+    telemetry.add("rng.calls.plain", 1)
+    if keys.is_cuda:
+        fn.cuda_calls += 1
+
+
+def fold_in_plain(keys, data):
+    """The plain version of `fold_in`."""
+    _count_plain(fold_in_plain, keys)
     if not torch.is_tensor(data):
         data = torch.tensor(int(data) & _MASK, dtype=torch.int64,
                             device=keys.device)
@@ -83,6 +99,15 @@ def fold_in(keys, data):
     y1, y2 = threefry2x32(keys[..., 0], keys[..., 1],
                           torch.zeros_like(data), data)
     return torch.stack(torch.broadcast_tensors(y1, y2), dim=-1)
+
+
+@spanned("rng")
+def fold_in(keys, data):
+    """`jax.random.fold_in` over a (..., 2) key tensor; `data` is an int or
+    an integer tensor broadcastable against keys[..., 0]."""
+    if keys.is_cuda:
+        return threefry.fold_in(keys, data)
+    return fold_in_plain(keys, data)
 
 
 def stream(k, *ids):
@@ -108,19 +133,40 @@ def _bits_to_unit(bits):
     return torch.clamp_min(f - 1.0, 0.0)
 
 
-@spanned("rng")
-def uniform1(keys):
-    """One U[0,1) float per lane key -> (B,)."""
+def uniform1_plain(keys):
+    """The plain version of `uniform1`."""
+    _count_plain(uniform1_plain, keys)
     zero = torch.zeros_like(keys[..., 0])
     y1, y2 = threefry2x32(keys[..., 0], keys[..., 1], zero, zero)
     return _bits_to_unit(y1 ^ y2)
 
 
-@spanned("rng")
-def uniform2(keys):
-    """U[0,1)^2 per lane key -> (B, 2)."""
+def uniform2_plain(keys):
+    """The plain version of `uniform2`."""
+    _count_plain(uniform2_plain, keys)
     k1 = keys[..., 0:1]
     k2 = keys[..., 1:2]
     ctr = torch.arange(2, dtype=torch.int64, device=keys.device)
     y1, y2 = threefry2x32(k1, k2, torch.zeros_like(ctr), ctr)
     return _bits_to_unit(y1 ^ y2)
+
+
+fold_in_plain.cuda_calls = 0
+uniform1_plain.cuda_calls = 0
+uniform2_plain.cuda_calls = 0
+
+
+@spanned("rng")
+def uniform1(keys):
+    """One U[0,1) float per lane key -> (B,)."""
+    if keys.is_cuda:
+        return threefry.uniform1(keys)
+    return uniform1_plain(keys)
+
+
+@spanned("rng")
+def uniform2(keys):
+    """U[0,1)^2 per lane key -> (B, 2)."""
+    if keys.is_cuda:
+        return threefry.uniform2(keys)
+    return uniform2_plain(keys)

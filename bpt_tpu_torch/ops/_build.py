@@ -34,7 +34,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("closest_hit.cu", "any_hit.cu", "closest_hit_stream.cu",
            "any_hit_stream.cu", "closest_hit_full.cu",
            "closest_hit_sweep.cu", "any_hit_compact.cu",
-           "gather_backward.cu")
+           "gather_backward.cu", "threefry.cu")
 HEADERS = ("intersect.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
@@ -76,6 +76,10 @@ _SIGNATURES = {
     # array), blocks, partials, out, stream
     "bpt_gather_rows_backward": (_P, _I, _I, _I, _I, _P, _P, _I, _P, _P,
                                  _P),
+    # mode, keys, data, data_kind, tag, n, dims, geometry (int64 array),
+    # out, stream
+    "bpt_threefry": (_I, _P, _P, _I, ctypes.c_uint, ctypes.c_longlong, _I,
+                     _P, _P, _P),
 }
 
 

@@ -3,8 +3,13 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from bpt_tpu_torch/csrc/, the seven trace
-kernels and G1 (the gathers' backward), and checks each one against its
-plain PyTorch version at the main paths' shapes:
+kernels, G1 (the gathers' backward) and R1 (threefry, the RNG), and checks
+each one against its plain PyTorch version at the main paths' shapes.
+First `rng`: each of fold_in, uniform1 and uniform2 one R1 launch,
+bit-equal to its plain version, timed on 131,072 and 1,048,576 lanes
+beside its byte bound, and a bench chunk's R1 launches a sample, held to
+the chunk with the three functions swapped for their plain versions.
+Then the trace kernels:
 K1-K4 as the routes of `accel/api.py` use them (K3 and K4 also against
 K1's and K2's plain versions, whose functions they compute), and K1, K2,
 K5 (full-table closest hit), K6 (tile-sweep closest hit) and K7
@@ -123,6 +128,7 @@ it exits with code 2.  JAX is never imported.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import re
@@ -1114,6 +1120,7 @@ def _identity_layout(o, d, min_t, max_t, bounds=None, kind="segment"):
 
 
 def _counters():
+    from bpt_tpu_torch.core import rng
     from bpt_tpu_torch.ops import gather
     from bpt_tpu_torch.ops import trace_any as ta
     from bpt_tpu_torch.ops import trace_closest as tc
@@ -1126,10 +1133,12 @@ def _counters():
                 "k6_closest_hit_sweep": tc.closest_hit_sweep,
                 "k7_any_hit_compact": ta.any_hit_compact,
                 "g1_gather_rows_backward": gather.gather_rows_backward}
+    # R1's launches are read by phase_rng alone: every path launches it.
     plains = (tc.closest_hit_plain, ta.any_hit_plain,
               tc.closest_hit_stream_plain, ta.any_hit_stream_plain,
               tc.closest_hit_full_plain, tc.closest_hit_sweep_plain,
-              ta.any_hit_compact_plain, gather.gather_rows_backward_plain)
+              ta.any_hit_compact_plain, gather.gather_rows_backward_plain,
+              rng.fold_in_plain, rng.uniform1_plain, rng.uniform2_plain)
     return launches, plains
 
 
@@ -2619,6 +2628,130 @@ def phase_gather(device, smi):
             "library_ms": timing["library_ms"]}
 
 
+# The threefry kernel R1 (phase rng): lanes a timed call, and the bytes a
+# lane moves in each call (its key read, its data read, its output written).
+# Timed calls cycle through copies of their inputs of at least cold_bytes
+# in all, twice the L2 cache, so each call reads its inputs from memory.
+RNG = dict(lanes=(131_072, 1_048_576), reps=20, spp=2, cold_bytes=100e6,
+           bytes_per_lane={"fold_in": 32, "fold_in_ids": 36,
+                           "uniform1": 20, "uniform2": 24})
+
+
+def device_us(fn, reps):
+    """(device us a call, device kernels a call, host wall us a call, mean
+    us a kernel) of `reps` calls of fn() after one warm-up call: the
+    profiler's kernel durations, and the host clock around the calls and
+    one sync.  The profiler may miss a kernel at its start, so a call of
+    one kernel is timed by the mean kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    tw = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tw
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    work = [ev.duration_ns() for ev in prof.profiler.kineto_results.events()
+            if ev.device_type() == torch.autograd.DeviceType.CUDA
+            and not ev.is_user_annotation()]
+    return (sum(work) / 1e3 / reps, len(work) / reps, 1e6 * wall / reps,
+            sum(work) / 1e3 / max(len(work), 1))
+
+
+def phase_rng(scene, cam, device, smi):
+    """R1 (csrc/threefry.cu through ops/threefry.py): each call of the
+    three RNG functions one launch, bit-equal to its plain version on the
+    card, device us a call on RNG['lanes'] lanes (inputs not in L2) beside
+    the plain version's and the bound of the bytes it moves; then a bench
+    chunk (256x256, 2 spp, rr8, sb 2) with the counts reset just before:
+    R1 launches a sample, no plain version on CUDA tensors, and the same
+    rays and framebuffer (within the t=1 splats' atomics) as the chunk
+    with the three functions swapped for their plain versions."""
+    from unittest import mock
+
+    from bpt_tpu_torch.core import rng
+    from bpt_tpu_torch.integrators.bdpt import BDPTConfig
+    from bpt_tpu_torch.ops import threefry
+
+    t0 = time.perf_counter()
+    calls = {
+        "fold_in": (lambda k, ids: rng.fold_in(k, rng.BSDF_SAMPLE),
+                    lambda k, ids: rng.fold_in_plain(k, rng.BSDF_SAMPLE)),
+        "fold_in_ids": (lambda k, ids: rng.fold_in(k, ids),
+                        lambda k, ids: rng.fold_in_plain(k, ids)),
+        "uniform1": (lambda k, ids: rng.uniform1(k),
+                     lambda k, ids: rng.uniform1_plain(k)),
+        "uniform2": (lambda k, ids: rng.uniform2(k),
+                     lambda k, ids: rng.uniform2_plain(k)),
+    }
+    equal, per_call, us, plain_us, bound_us = True, {}, {}, {}, {}
+    host_us, plain_host_us, kernels, plain_kernels = {}, {}, {}, {}
+    for n in RNG["lanes"]:
+        ids = torch.arange(n, device=device, dtype=torch.int32)
+        keys = rng.lane_keys(rng.key(SEED, device), ids)
+        copies = itertools.cycle([(keys.clone(), ids.clone()) for _ in range(
+            int(-(-RNG["cold_bytes"] // (20 * n))))])
+        for name, (kernel, plain) in calls.items():
+            before = threefry.threefry_cuda.launches
+            got = kernel(keys, ids)
+            per_call[name] = threefry.threefry_cuda.launches - before
+            want = plain(keys, ids)
+            if got.dtype == torch.float32:
+                got, want = got.view(torch.int32), want.view(torch.int32)
+            equal = equal and got.shape == want.shape and bool(
+                torch.equal(got, want))
+            at = f"{name}.{n}"
+            _, kernels[at], host_us[at], us[at] = device_us(
+                lambda: kernel(*next(copies)), RNG["reps"])
+            plain_us[at], plain_kernels[at], plain_host_us[at], _ = \
+                device_us(lambda: plain(*next(copies)), RNG["reps"])
+            bound_us[at] = 1e6 * n * RNG["bytes_per_lane"][name] / PEAK_BYTES
+    cfg = BDPTConfig(BENCH["width"], BENCH["height"], spp=RNG["spp"],
+                     rr_depth=BENCH["rr_depth"])
+    cc = cam.device_constants(device)
+    key = rng.key(SEED, device)
+    _timed_chunk(scene, cc, cfg, key, RNG["spp"], BENCH["sb"])
+    threefry.threefry_cuda.launches = 0
+    fb, nrays, wall, launches, plain_calls, _ = _timed_chunk(
+        scene, cc, cfg, key, RNG["spp"], BENCH["sb"])
+    r1 = threefry.threefry_cuda.launches
+    with mock.patch.multiple(rng, fold_in=rng.fold_in_plain,
+                             uniform1=rng.uniform1_plain,
+                             uniform2=rng.uniform2_plain):
+        fb_p, nrays_p, wall_p, _, plain_p, _ = _timed_chunk(
+            scene, cc, cfg, key, RNG["spp"], BENCH["sb"])
+    fb_gap = float((fb - fb_p).abs().max() / fb_p.abs().mean())
+    out = {"phase": "rng", "nvidia_smi": smi, "launches_per_call": per_call,
+           "bit_equal": equal, "us_per_call": us, "plain_us_per_call":
+           plain_us, "bound_us": bound_us, "kernels_per_call": kernels,
+           "plain_kernels_per_call": plain_kernels,
+           "host_us_per_call": host_us, "plain_host_us_per_call":
+           plain_host_us,
+           "share_of_bound": {k: bound_us[k] / us[k] for k in us},
+           "chunk": f"{BENCH['width']}x{BENCH['height']} spp {RNG['spp']} "
+                    f"rr{BENCH['rr_depth']} sb {BENCH['sb']}",
+           "r1_launches_per_sample": r1 / RNG["spp"],
+           "trace_launches": launches, "plain_calls_on_cuda": plain_calls,
+           "plain_route_calls_on_cuda": plain_p, "nrays": nrays,
+           "nrays_plain_route": nrays_p, "fb_gap": fb_gap,
+           "wall_s": wall, "wall_s_plain_route": wall_p}
+    emit(out, t0)
+    if (not equal or set(per_call.values()) != {1}
+            or not all(0.9 <= k <= 1 for k in kernels.values()) or plain_calls
+            or not plain_p or nrays != nrays_p or fb_gap > 1e-5 or not r1):
+        raise AssertionError(f"rng: R1 failed its checks {out}")
+    big = RNG["lanes"][-1]
+    return {"launches": r1, "launches_per_sample": r1 / RNG["spp"],
+            "ms": {k: us[f"{k}.{big}"] / 1e3 for k in calls},
+            "plain_ms": {k: plain_us[f"{k}.{big}"] / 1e3 for k in calls},
+            "bound_ms": {k: bound_us[f"{k}.{big}"] / 1e3 for k in calls}}
+
+
 def phase_realtime(scene, meta, cam, device, smi):
     """realtime.py's frame loop on the bench scene at 256x256: each pass
     (normal, simple, ssao, gi) for a run of frames with real EXR writes,
@@ -2762,6 +2895,7 @@ def _phases(device, info, mesh):
 
     smi = info["nvidia_smi"]
     scene, meta, cam = bench_scene(device)
+    r1 = phase_rng(scene, cam, device, smi)
     scene6 = phase_subdiv6(device)
     l = BENCH["rr_depth"] - 1
     n_connect = l * (l + 2) * BENCH["width"] * BENCH["height"] * BENCH["sb"]
@@ -2893,6 +3027,16 @@ def _phases(device, info, mesh):
                  "max_abs_err": g1["max_abs_err"], "ms": g1["ms"],
                  "plain_ms": g1["plain_ms"], "bound_ms": g1["bound_ms"],
                  "bound_by": "bytes", "library_ms": g1["library_ms"]})
+    # R1 replaces no TPU kernel: XLA fused jax.random's threefry.  Its
+    # times are a call of each RNG function on RNG['lanes'][-1] lanes;
+    # `launches` counts a bench chunk's (phase rng).
+    rows.append({"name": "threefry", "route": "cuda",
+                 "source": "bpt_tpu_torch/csrc/threefry.cu",
+                 "replaces": None, "launches": r1["launches"],
+                 "launches_per_sample": r1["launches_per_sample"],
+                 "max_abs_err": 0.0, "ms": r1["ms"],
+                 "plain_ms": r1["plain_ms"], "bound_ms": r1["bound_ms"],
+                 "bound_by": "bytes", "library_ms": None})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
