@@ -54,11 +54,13 @@ def _applies(metric, cell, reported=None) -> bool:
 
 def program_counters():
     """(kernel launches by wrapper, calls of plain versions on CUDA
-    tensors): the port's own counters in ops/trace_*.py."""
-    from bpt_tpu_torch.ops import trace_any, trace_closest
+    tensors): the port's own counters in ops/trace_*.py, ops/gather.py
+    and core/rng.py."""
+    from bpt_tpu_torch.core import rng
+    from bpt_tpu_torch.ops import gather, trace_any, trace_closest
 
     launches, plain = {}, 0
-    for mod in (trace_closest, trace_any):
+    for mod in (trace_closest, trace_any, gather, rng):
         for name, fn in vars(mod).items():
             if hasattr(fn, "launches"):
                 launches[name] = fn.launches
