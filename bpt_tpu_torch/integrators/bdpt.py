@@ -900,6 +900,20 @@ def connect_pool(scene, cfg: BDPTConfig, eye_slots: LightVertexSlots,
 
 # ---- rendering -----------------------------------------------------------
 
+def _accumulate(fb, cfg: BDPTConfig, pixel_idx, li, splat_pix, splat_rgb):
+    """Add a sample's eye contributions `li` (B, 3) at their pixels, over
+    cfg.spp, and its light splats (None: none) into `fb` (W*H + 1, 3),
+    whose last row takes the splats that miss the image; return its W*H
+    pixels."""
+    # index_add_ on CUDA accumulates with atomics in run-dependent order.
+    with telemetry.span("bdpt.splat"):
+        fb.index_add_(0, pixel_idx.long(), li / cfg.spp)
+        if splat_pix is not None and splat_pix.numel():
+            fb.index_add_(0, splat_pix.reshape(-1).long(),
+                          splat_rgb.reshape(-1, 3))
+    return fb[: cfg.width * cfg.height]
+
+
 def render_sample(scene, cam_consts, cfg: BDPTConfig, key, pixel_idx,
                   lkeys=None):
     """One pixel-sample per lane -> dense (W*H, 3) framebuffer increment
@@ -948,14 +962,7 @@ def render_sample(scene, cam_consts, cfg: BDPTConfig, key, pixel_idx,
             li, nr_e = eye_subpath_walk(scene, cam_consts, cfg, lkeys, d)
             nrays = nrays + nr_e
     li = torch.where(primary_alive[..., None], li, torch.zeros_like(li))
-
-    # index_add_ on CUDA accumulates with atomics in run-dependent order.
-    with telemetry.span("bdpt.splat"):
-        fb.index_add_(0, pixel_idx.long(), li / cfg.spp)
-        if splat_pix is not None and splat_pix.numel():
-            fb.index_add_(0, splat_pix.reshape(-1).long(),
-                          splat_rgb.reshape(-1, 3))
-    return fb[: w * h], nrays
+    return _accumulate(fb, cfg, pixel_idx, li, splat_pix, splat_rgb), nrays
 
 
 def render_sample_pool(scene, cam_consts, cfg: BDPTConfig, key, pixel_idx,
@@ -1016,11 +1023,7 @@ def render_sample_pool(scene, cam_consts, cfg: BDPTConfig, key, pixel_idx,
     li = torch.where(primary_hit.valid[..., None], li, torch.zeros_like(li))
 
     fb = torch.zeros((w * h + 1, 3), dtype=torch.float32, device=d.device)
-    fb.index_add_(0, pixel_idx.long(), li / cfg.spp)
-    if splat_pix.numel():
-        fb.index_add_(0, splat_pix.reshape(-1).long(),
-                      splat_rgb.reshape(-1, 3))
-    return fb[: w * h], nrays
+    return _accumulate(fb, cfg, pixel_idx, li, splat_pix, splat_rgb), nrays
 
 
 def _blocked_pixel_order(w: int, h: int, device, bs: int = 16):

@@ -42,13 +42,6 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# The kernels that read the (NT, 9, K) block (K5, K6 and K7 before their
-# redesign, which probes/k5_old_vs_new.py and k67_old_vs_new.py build):
-# bmin, bmax, block, tri_index, nt, k, o, d, min_t, max_t, b,
-# t, tri, u, v, stream
-_CLOSEST = (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P)
-# bmin, bmax, block, nt, k, o, d, min_t, max_t, b, occ, stream
-_ANY = (_P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P)
 # The kernels that read the packed rows (accel/treelets.py::
 # packed_triangles): K1, K5 and K6, K2 and K7.
 # bmin, bmax, rows, offsets, nt, n_rows, o, d, min_t, max_t, b,

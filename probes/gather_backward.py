@@ -122,6 +122,8 @@ def step_calls(res, device):
                            target)
     finally:
         gather.gather_rows_backward = inner
+        # The step's launches, handed back to the kernel's own counter.
+        inner.launches += recorded.launches
     return calls
 
 

@@ -167,6 +167,29 @@ def run(res=1024, iters=150, spp=2, lr=0.2, device="cuda", profile=None):
     }
 
 
+def _profile(step, step_wall_s):
+    """Device time of one call of `step` (torch.profiler, read by
+    portbench/harness/trace.py): busy seconds, the idle share against
+    `step_wall_s`, the unprofiled step's wall (the profiler slows the
+    host), and the ops that took most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from portbench.harness import trace
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    tr = trace.summarize(trace.events(prof), wall)
+    if tr.busy_s == 0.0:
+        return {"profile": "not measured (no device time in the trace)"}
+    return {"device_busy_s": tr.busy_s, "step_wall_s": step_wall_s,
+            "device_idle_share": max(0.0, 1.0 - tr.busy_s / step_wall_s),
+            "profile_wall_s": wall, "kernels": tr.kernels,
+            "device_ops_s": tr.device_ops}
+
+
 def _nvidia_smi():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -184,21 +207,17 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--profile", action="store_true",
                     help="profile one more step after the recovery "
-                         "(chip_smoke.py's _profile_run: device time by "
-                         "kernel group, idle share)")
+                         "(device busy time, idle share, the ops that "
+                         "took most device time)")
     args = ap.parse_args(argv)
     if torch.device(args.device).type == "cuda" and \
             not torch.cuda.is_available():
         print("inverse_recover: no CUDA device (pass --device cpu)",
               file=sys.stderr)
         return 2
-    profile = None
-    if args.profile:
-        import chip_smoke
-
-        profile = chip_smoke._profile_run
     print(json.dumps(run(args.res, args.iters, args.spp, args.lr,
-                         args.device, profile)), flush=True)
+                         args.device, _profile if args.profile else None)),
+          flush=True)
     return 0
 
 

@@ -1,6 +1,6 @@
-"""Times one sample of the explicit path tracer (chip_smoke.py's `path`
-phase: the bench scene, 256x256, the scene file's defaults, one sample a
-batch, through K1) with and without the early ends of its loops:
+"""Times one sample of the explicit path tracer (the bench scene,
+256x256, the scene file's defaults, one sample a batch, through K1) with
+and without the early ends of its loops:
 
   both         the re-roll and the bounce loops end once no lane is left
                in them (integrators/path.py as it is);
@@ -11,9 +11,10 @@ batch, through K1) with and without the early ends of its loops:
 Each variant renders the same sample (seed and sample index fixed), in
 the order both, bounce_only, none, then the reverse, REPS times each
 way; the images and ray counts must be bit-equal across variants.  With
-`--large`, the same on the large scene (chip_smoke.py's `path_large`,
-through K3).  One JSON line per measurement on standard output.  Needs a
-CUDA card; exits 2 without one.
+`--large`, the same on the large scene (the glass box at subdiv 7,
+read back from its scene file, through K3).  One JSON line per
+measurement on standard output.  Needs a CUDA card; exits 2 without
+one.
 
     env PYTHONPATH=. python3 probes/path_early_ends.py [--large]
 """
@@ -34,6 +35,25 @@ from bpt_tpu_torch.integrators import path as tp
 
 VARIANTS = ("both", "bounce_only", "none")
 REPS = 2
+WIDTH = 256
+
+
+def counted(render):
+    """render() -> (image, nrays), timed to the card's end, with the
+    closest-hit launches (K1, K3) it made: (image, nrays, wall_s,
+    launches)."""
+    from bpt_tpu_torch.ops import trace_closest as tc
+
+    kernels = {"k1_closest_hit": tc.closest_hit,
+               "k3_closest_hit_stream": tc.closest_hit_stream}
+    before = {k: fn.launches for k, fn in kernels.items()}
+    torch.cuda.synchronize()
+    tw = time.perf_counter()
+    img, nr = render()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tw
+    return (img, int(nr), wall,
+            {k: fn.launches - before[k] for k, fn in kernels.items()})
 
 
 def _always(mask):
@@ -60,14 +80,14 @@ def early_ends(variant):
 
 
 def measure(name, scene, cam, device, smi):
-    cfg = tp.PathConfig(cs.OTHER["width"], cs.OTHER["width"], 1)
+    cfg = tp.PathConfig(WIDTH, WIDTH, 1)
     cam_consts = cam.device_constants(device)
     key = rng.key(cs.SEED, device)
     ref = None
     walls = {v: [] for v in VARIANTS}
     for variant in VARIANTS:  # warm-up, and the images to compare
         with early_ends(variant):
-            img, nrays, _, launches, _, _ = cs.counted(
+            img, nrays, _, launches = counted(
                 lambda: tp.render_chunk_path(scene, cam_consts, cfg, key, 1))
         if ref is None:
             ref = (img, nrays)
@@ -78,7 +98,7 @@ def measure(name, scene, cam, device, smi):
     order = (VARIANTS + VARIANTS[::-1]) * REPS
     for variant in order:
         with early_ends(variant):
-            walls[variant].append(cs.counted(
+            walls[variant].append(counted(
                 lambda: tp.render_chunk_path(scene, cam_consts, cfg, key,
                                              1))[2])
     out = {"probe": "path_early_ends", "scene": name, "nvidia_smi": smi,

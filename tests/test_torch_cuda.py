@@ -1,19 +1,22 @@
 """The CUDA kernels K1-K7 against their plain PyTorch versions on the
 card: bit-equal hits and equal occlusion flags; K3-K7 also against K1
 and K2; K1 and K2 also on the 923-treelet table, on the largest table
-they take and on edge batches; renders of BDPT and of every integrator
-of path.py, direct.py and misc.py through the kernels against renders
-through the plain versions; gradients through K1/K2 against central
-finite differences and against the plain versions' gradients; each
-realtime pass through the kernels against the plain versions; the
-pooled render through the kernels against the plain versions, and the
-device mesh at world size 1 over NCCL.  These
-need an NVIDIA GPU with nvcc and skip without one; run them on the card
-with
+they take and on edge batches.  Through the kernels against the same
+through the plain versions: renders of BDPT and of every integrator of
+path.py, direct.py and misc.py, with K5/K7 or K6 swapped in for K1/K2,
+and at two batch sizes; gradients of every estimator (and central
+finite differences); each realtime pass; the pooled render and the
+device mesh at world size 1 over NCCL; the large scene read from its
+scene file, rendered and differentiated through K3/K4.  The
+estimators' agreement and the command-line renderer on the card.
+These need an NVIDIA GPU with nvcc and skip without one; run them on
+the card with
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 """
 from __future__ import annotations
+
+from contextlib import contextmanager, nullcontext
 
 import numpy as np
 import pytest
@@ -79,47 +82,114 @@ def test_any_kernel_equal_to_plain(cuda_scene, n):
     assert torch.equal(got, ref)
 
 
-def test_kernel_render_matches_plain_render(cuda_scene):
+K12 = ("k1_closest_hit", "k2_any_hit")
+K34 = ("k3_closest_hit_stream", "k4_any_hit_stream")
+G1 = "g1_gather_rows_backward"
+
+
+@contextmanager
+def _launched(*used):
+    """The kernel launches of the block, counted by chip_smoke's counters
+    (reset on entry): each kernel of `used` launched, no other trace
+    kernel or G1, and no plain version of a trace kernel, of G1 or of the
+    RNG called on CUDA tensors.  Yields the launches by kernel, filled
+    in on exit."""
+    import chip_smoke
+
+    launches = {}
+    chip_smoke.reset_counts()
+    yield launches
+    torch.cuda.synchronize()
+    got, plain_calls = chip_smoke.read_counts()
+    launches.update(got)
+    assert plain_calls == 0, "plain versions ran on CUDA tensors"
+    assert all(got[k] > 0 for k in used), got
+    assert not any(n for k, n in got.items() if k not in used), got
+
+
+def _k12_plain():
+    from bpt_tpu_torch.ops import trace_any as ta
+    from bpt_tpu_torch.ops import trace_closest as tc
+
+    return {"closest_hit": tc.closest_hit_plain, "any_hit": ta.any_hit_plain}
+
+
+def _kernel_and_plain(render, used, routes=None):
+    """render() -> (img, nrays) through the kernels, held by
+    _launched(*used), and through the plain `routes` (K1's and K2's by
+    default) swapped into accel/api.py here only:
+    (kernel, plain, launches of the kernel render)."""
     from unittest import mock
 
     from bpt_tpu_torch.accel import api
+
+    with _launched(*used) as launches:
+        kernel = render()
+    with mock.patch.multiple(api, **(routes or _k12_plain())):
+        plain = render()
+    return kernel, plain, launches
+
+
+def _cam32():
     from bpt_tpu_torch.core.camera import Camera
+
+    return Camera.make([0.0, 1.0, 3.8], [0.0, 1.0, 0.0], [0.0, 1.0, 0.0],
+                       39.0, 32, 32)
+
+
+# Routes swapped into accel/api.py for K1 and K2 (the package routes to
+# K5-K7 nowhere): {api name: kernel}, the kernels launched, and the
+# kernel of the K1/K2 route each stands for.
+ROUTES = {
+    "k1_k2": ({}, {"k1_closest_hit": "k1_closest_hit",
+                   "k2_any_hit": "k2_any_hit"}),
+    "k5_k7": ({"closest_hit": "closest_hit_full",
+               "any_hit": "any_hit_compact"},
+              {"k5_closest_hit_full": "k1_closest_hit",
+               "k7_any_hit_compact": "k2_any_hit"}),
+    "k6": ({"closest_hit": "closest_hit_sweep"},
+           {"k6_closest_hit_sweep": "k1_closest_hit",
+            "k2_any_hit": "k2_any_hit"}),
+}
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_kernel_render_matches_plain_render(cuda_scene, route):
+    """BDPT at 32x32 through K1/K2, or with K5 and K7, or K6, swapped in
+    for them, against the render through K1's and K2's plain versions.
+    Each kernel of the route launches as often as the K1/K2 kernel it
+    stands for.  K1/K2 and K5/K7 compute the same function: the same
+    rays, and every pixel within rtol 1e-4 (the t=1 splats add with
+    atomics).  K6 may take another triangle on an exact-t tie, so the
+    aggregate gate."""
+    from unittest import mock
+
+    from bpt_tpu_torch.accel import api
     from bpt_tpu_torch.integrators.bdpt import BDPTConfig, render_image
-    from bpt_tpu_torch.ops.trace_any import any_hit_plain
-    from bpt_tpu_torch.ops.trace_closest import closest_hit_plain
+    from bpt_tpu_torch.ops import trace_any as ta
+    from bpt_tpu_torch.ops import trace_closest as tc
 
-    cam = Camera.make([0.0, 1.0, 3.8], [0.0, 1.0, 0.0], [0.0, 1.0, 0.0],
-                      39.0, 32, 32)
+    swaps, stands_for = ROUTES[route]
     cfg = BDPTConfig(32, 32, spp=2, rr_depth=4)
-    a, na = render_image(cuda_scene, cam, cfg, seed=1)
-    with mock.patch.object(api, "closest_hit", closest_hit_plain), \
-            mock.patch.object(api, "any_hit", any_hit_plain):
-        b, nb = render_image(cuda_scene, cam, cfg, seed=1)
-    assert na == nb
-    torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    cam = _cam32()
 
+    def render():
+        return render_image(cuda_scene, cam, cfg, seed=1)
 
-def _render_kernel_and_plain(scene, cfg):
-    """A 32x32 render through K1/K2 and one through their plain versions
-    (swapped into accel/api.py here only), with the K2 launches of the
-    kernel render: ((img, nrays), (img, nrays), k2_launches)."""
-    from unittest import mock
-
-    from bpt_tpu_torch.accel import api
-    from bpt_tpu_torch.core.camera import Camera
-    from bpt_tpu_torch.integrators.bdpt import render_image
-    from bpt_tpu_torch.ops.trace_any import any_hit, any_hit_plain
-    from bpt_tpu_torch.ops.trace_closest import closest_hit_plain
-
-    cam = Camera.make([0.0, 1.0, 3.8], [0.0, 1.0, 0.0], [0.0, 1.0, 0.0],
-                      39.0, 32, 32)
-    k2 = any_hit.launches
-    kernel = render_image(scene, cam, cfg, seed=1)
-    k2 = any_hit.launches - k2
-    with mock.patch.object(api, "closest_hit", closest_hit_plain), \
-            mock.patch.object(api, "any_hit", any_hit_plain):
-        plain = render_image(scene, cam, cfg, seed=1)
-    return kernel, plain, k2
+    with _launched(*K12) as base:
+        render()
+    swaps = {k: getattr(tc if k == "closest_hit" else ta, v)
+             for k, v in swaps.items()}
+    with mock.patch.multiple(api, **swaps) if swaps else nullcontext():
+        kernel, plain, launches = _kernel_and_plain(render, stands_for)
+    for k, b in stands_for.items():
+        assert launches[k] == base[b], (launches, base)
+    if route == "k6":
+        _assert_agree(kernel, plain)
+    else:
+        (a, na), (b, nb) = kernel, plain
+        assert na == nb
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
 
 
 def _assert_agree(kernel, plain):
@@ -138,24 +208,52 @@ def _assert_agree(kernel, plain):
     dict(no_rr=False, rr_depth=2, max_bounces=6), dict(mode="light_trace"),
     dict(mode="path_trace")], ids=["rr", "light_trace", "path_trace"])
 def test_estimator_renders_through_the_kernels(cuda_scene, change):
-    from bpt_tpu_torch.integrators.bdpt import BDPTConfig
+    from bpt_tpu_torch.integrators.bdpt import BDPTConfig, render_image
 
     cfg = BDPTConfig(32, 32, **{"spp": 2, "rr_depth": 4, **change})
-    kernel, plain, k2 = _render_kernel_and_plain(cuda_scene, cfg)
-    assert k2 > 0
+    cam = _cam32()
+    kernel, plain, _ = _kernel_and_plain(
+        lambda: render_image(cuda_scene, cam, cfg, seed=1), K12)
     _assert_agree(kernel, plain)
 
 
-def test_chunked_connect_through_the_kernels(cuda_scene, monkeypatch):
-    """A pair grid of 3 x 3 x 1,024 lanes against a budget of 4,000: one
-    NEE + t=1 any-hit launch and three one-row pair launches a sample."""
+@pytest.mark.parametrize("sb,budget", [(1, 4_000), (4, 20_000)],
+                         ids=["sb1", "sb4"])
+def test_chunked_connect_through_the_kernels(cuda_scene, monkeypatch, sb,
+                                             budget):
+    """render_chunk (4 spp, rr_depth 4) with the pair connect in chunks,
+    through K1/K2 against their plain versions, at two batch sizes: 1
+    sample a batch, whose 3 x 3 x 1,024-lane pair grid exceeds a budget
+    of 4,000, and 4, whose 3 x 3 x 4,096 lanes exceed 20,000.  A batch
+    launches K1 for the primaries and 3 walk depths, and K2 for one NEE
+    + t=1 trace and three one-row pair traces.  At 4 a batch the render
+    is also held to the same samples at 2 a batch (unchunked: one K2
+    launch a batch) by the aggregate gate."""
+    from bpt_tpu_torch.core import rng
     from bpt_tpu_torch.integrators import bdpt
 
-    monkeypatch.setattr(bdpt, "MEGA_MAX_LANES", 4000)
-    cfg = bdpt.BDPTConfig(32, 32, spp=2, rr_depth=4)
-    kernel, plain, k2 = _render_kernel_and_plain(cuda_scene, cfg)
-    assert k2 == 2 * 4
+    monkeypatch.setattr(bdpt, "MEGA_MAX_LANES", budget)
+    cc = _cam32().device_constants("cuda")
+    cfg = bdpt.BDPTConfig(32, 32, spp=4, rr_depth=4)
+    key = rng.key(7, "cuda")
+
+    def chunk(b):
+        def render():
+            fb, nrays = bdpt.render_chunk(cuda_scene, cc, cfg, key, cfg.spp,
+                                          samples_per_batch=b)
+            return fb, int(nrays)
+        return render
+
+    kernel, plain, launches = _kernel_and_plain(chunk(sb), K12)
+    batches = cfg.spp // sb
+    assert (launches["k1_closest_hit"], launches["k2_any_hit"]) == (
+        4 * batches, 4 * batches)
     _assert_agree(kernel, plain)
+    if sb == 4:
+        with _launched(*K12) as two:
+            unchunked = chunk(2)()
+        assert (two["k1_closest_hit"], two["k2_any_hit"]) == (8, 2)
+        _assert_agree(kernel, unchunked)
 
 
 @pytest.fixture(scope="module")
@@ -167,26 +265,6 @@ def cuda_box():
 
     return cornell_box_scene(32, 32, device="cuda",
                              right_object="glass_sphere", sphere_subdiv=3)
-
-
-def _integrator_kernel_and_plain(box, render):
-    """`render(scene, meta, cam)` through K1/K2 and through their plain
-    versions (swapped into accel/api.py here only), with the K1 and K2
-    launches of the kernel render: ((img, nrays), (img, nrays), k1, k2)."""
-    from unittest import mock
-
-    from bpt_tpu_torch.accel import api
-    from bpt_tpu_torch.ops.trace_any import any_hit, any_hit_plain
-    from bpt_tpu_torch.ops.trace_closest import closest_hit, \
-        closest_hit_plain
-
-    k1, k2 = closest_hit.launches, any_hit.launches
-    kernel = render(*box)
-    k1, k2 = closest_hit.launches - k1, any_hit.launches - k2
-    with mock.patch.object(api, "closest_hit", closest_hit_plain), \
-            mock.patch.object(api, "any_hit", any_hit_plain):
-        plain = render(*box)
-    return kernel, plain, k1, k2
 
 
 def _path(**kw):
@@ -222,6 +300,11 @@ INTEGRATORS = {
 }
 
 
+# The integrators that trace occlusion through K2; the others take K1
+# alone.
+OCCLUSION = ("misc_simple", "misc_ao", "misc_ro")
+
+
 @pytest.mark.parametrize("name", list(INTEGRATORS))
 def test_integrator_renders_through_the_kernels(cuda_box, name):
     """Each integrator of path.py, direct.py and misc.py renders through
@@ -229,72 +312,70 @@ def test_integrator_renders_through_the_kernels(cuda_box, name):
     its render through the plain versions."""
     make, arg = INTEGRATORS[name]
     render = make(**arg) if isinstance(arg, dict) else make(arg)
-    kernel, plain, k1, k2 = _integrator_kernel_and_plain(cuda_box, render)
-    assert k1 > 0
-    assert (k2 > 0) == (name in ("misc_simple", "misc_ao", "misc_ro"))
+    kernel, plain, _ = _kernel_and_plain(
+        lambda: render(*cuda_box),
+        K12 if name in OCCLUSION else ("k1_closest_hit",))
     _assert_agree(kernel, plain)
 
 
-@pytest.mark.parametrize("field,idx", [("diffuse", (0, 0)),
-                                       ("emission", (5, 1))])
-def test_gradient_through_the_kernels(cuda_box, field, idx):
-    """tests/test_grad.py's finite-difference check at 32x32 through K1
-    and K2 (eps 1e-2, rtol 0.05, atol 1e-4), and every field's gradient
-    within 1e-4 of its norm of the gradient through the plain versions."""
-    from unittest import mock
+GRAD_MODES = {"bdpt": {}, "path_trace": dict(mode="path_trace"),
+              "light_trace": dict(mode="light_trace"),
+              "rr": dict(no_rr=False, rr_depth=2, max_bounces=6)}
 
-    from bpt_tpu_torch.accel import api
+
+@pytest.mark.parametrize("mode", list(GRAD_MODES))
+def test_gradient_through_the_kernels(cuda_box, mode):
+    """Gradients of each estimator and of Russian roulette through K1/K2
+    and G1 (32x32, 4 spp in chunks of 2, key 11): finite, an emission
+    gradient, each field within 1e-4 of its norm of the gradient through
+    the plain versions; for BDPT also tests/test_grad.py's
+    finite-difference check (eps 1e-2, rtol 0.05, atol 1e-4) of the
+    floor's red albedo and the light's green emission."""
     from bpt_tpu_torch.core import rng
     from bpt_tpu_torch.diff.grad import extract_params, \
-        finite_difference_check, loss_and_grad
+        finite_difference_check
     from bpt_tpu_torch.integrators.bdpt import BDPTConfig
-    from bpt_tpu_torch.ops.trace_any import any_hit, any_hit_plain
-    from bpt_tpu_torch.ops.trace_closest import closest_hit, \
-        closest_hit_plain
 
     scene, _, cam = cuda_box
     cc = cam.device_constants("cuda")
-    cfg = BDPTConfig(32, 32, spp=4, rr_depth=3)
+    cfg = BDPTConfig(32, 32, **{"spp": 4, "rr_depth": 3, **GRAD_MODES[mode]})
     key = rng.key(11, "cuda")
+    g, _ = _grad_kernel_and_plain(scene, cc, cfg, key, 2, _k12_plain(),
+                                  (*K12, G1))
+    if mode != "bdpt":
+        return
     params = extract_params(scene)
     target = torch.zeros((32 * 32, 3), device="cuda")
-    k1, k2 = closest_hit.launches, any_hit.launches
-    loss, g = loss_and_grad(params, scene, cc, cfg, key, 2, target)
-    assert closest_hit.launches > k1 and any_hit.launches > k2
-    with mock.patch.object(api, "closest_hit", closest_hit_plain), \
-            mock.patch.object(api, "any_hit", any_hit_plain):
-        _, g_plain = loss_and_grad(params, scene, cc, cfg, key, 2, target)
-    for f, v in g.items():
-        assert torch.isfinite(v).all()
-        assert float(torch.linalg.vector_norm(v - g_plain[f])) <= \
-            1e-4 * float(torch.linalg.vector_norm(g_plain[f]))
-    fd = float(finite_difference_check(params, scene, cc, cfg, key, 2,
-                                       target, field, idx, eps=1e-2))
-    ad = float(g[field][idx])
-    assert abs(fd - ad) <= 1e-4 + 0.05 * abs(ad), (fd, ad)
+    for field, idx in (("diffuse", (0, 0)), ("emission", (5, 1))):
+        fd = float(finite_difference_check(params, scene, cc, cfg, key, 2,
+                                           target, field, idx, eps=1e-2))
+        ad = float(g[field][idx])
+        assert abs(fd - ad) <= 1e-4 + 0.05 * abs(ad), (field, fd, ad)
 
 
 @pytest.mark.parametrize("pass_type", ["normal", "simple", "ssao", "gi"])
 def test_realtime_pass_through_the_kernels(cuda_box, pass_type):
-    """Two frames of each realtime pass through K1/K2 equal the same
-    frames through the plain versions, pixel for pixel."""
+    """Two frames of each realtime pass through K1 (and K2 where the pass
+    traces occlusion) equal the same frames through the plain versions,
+    pixel for pixel."""
     from unittest import mock
 
     from bpt_tpu_torch import realtime
     from bpt_tpu_torch.accel import api
     from bpt_tpu_torch.ops.trace_any import any_hit_plain
-    from bpt_tpu_torch.ops.trace_closest import closest_hit, \
-        closest_hit_plain
+    from bpt_tpu_torch.ops.trace_closest import closest_hit_plain
     from bpt_tpu_torch.scene.toml_config import RenderConfig
 
     scene, meta, cam = cuda_box
     cfg_t = RenderConfig(toml_file="<test>", obj_file="<proc>", camera=cam,
                          width=32, height=32, spp=2, integrator=pass_type,
                          realtime=True, rr_depth=3)
-    k1 = closest_hit.launches
-    a, frames, na = realtime.run_realtime(scene, meta, cfg_t, "unused.exr",
-                                          seed=2, write_exr=lambda *_: None)
-    assert frames == 2 and closest_hit.launches >= k1 + 2
+    with _launched(*(K12 if pass_type in ("simple", "ssao")
+                     else ("k1_closest_hit",))) as launches:
+        a, frames, na = realtime.run_realtime(
+            scene, meta, cfg_t, "unused.exr", seed=2,
+            write_exr=lambda *_: None)
+    assert frames == 2 and launches["k1_closest_hit"] >= 2
     assert a.device.type == "cuda" and torch.isfinite(a).all()
     with mock.patch.object(api, "closest_hit", closest_hit_plain), \
             mock.patch.object(api, "any_hit", any_hit_plain):
@@ -369,18 +450,29 @@ def test_stream_kernels_match_k1_k2_on_the_bench_scene(cuda_scene):
 
 
 @pytest.fixture(scope="module")
-def cuda_large():
-    """The glass box at subdiv 7: 327,704 triangles, 3,656 treelets, the
-    large scene of the main path."""
+def cuda_large_file(tmp_path_factory):
+    """The glass box at subdiv 7 (327,704 triangles, 3,656 treelets, the
+    large scene of the main path) as a user brings it: written as TOML +
+    OBJ/MTL at 32x32 and read back through load_toml and load_scene.
+    (scene, meta, the scene file's RenderConfig)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    from bpt_tpu_torch.scene.procedural import cornell_box_scene
+    from bpt_tpu_torch.scene.export import export_cornell_box
+    from bpt_tpu_torch.scene.scene import load_scene
+    from bpt_tpu_torch.scene.toml_config import load_toml
 
-    scene, _, _ = cornell_box_scene(16, 16, device="cuda",
-                                    right_object="glass_sphere",
-                                    sphere_subdiv=7)
+    cfg_t = load_toml(export_cornell_box(
+        str(tmp_path_factory.mktemp("large")), width=32, height=32,
+        right_object="glass_sphere", sphere_subdiv=7))
+    scene, meta = load_scene(cfg_t.obj_file, "cuda")
+    assert meta.n_triangles == 327_704
     assert scene.treelets.block.shape[0] == 3_656
-    return scene
+    return scene, meta, cfg_t
+
+
+@pytest.fixture(scope="module")
+def cuda_large(cuda_large_file):
+    return cuda_large_file[0]
 
 
 @pytest.mark.parametrize("table", ["cuda_scene", "cuda_large"])
@@ -620,25 +712,16 @@ def test_pooled_render_through_the_kernels(cuda_box):
     """Pooled light transport (32x32, a pool of 32, rr_depth 4) through
     K1/K2, in connect chunks of the default budget, against the render
     through their plain versions; every pool pass launches K2."""
-    from unittest import mock
-
-    from bpt_tpu_torch.accel import api
     from bpt_tpu_torch.integrators.bdpt import BDPTConfig
-    from bpt_tpu_torch.ops.trace_any import any_hit, any_hit_plain
-    from bpt_tpu_torch.ops.trace_closest import closest_hit, \
-        closest_hit_plain
 
     scene, _, cam = cuda_box
     cfg = BDPTConfig(32, 32, spp=2, rr_depth=4, light_pool=32)
-    k1, k2 = closest_hit.launches, any_hit.launches
-    kernel = _pool_render(scene, cam, cfg, seed=3)
+    kernel, plain, launches = _kernel_and_plain(
+        lambda: _pool_render(scene, cam, cfg, seed=3), K12)
     # Per sample: primaries, 3 pool and 3 eye walk depths through K1; 3
     # t=1, 3 NEE and one connect_pool chunk through K2.
-    assert closest_hit.launches - k1 == 7 * cfg.spp
-    assert any_hit.launches - k2 == 7 * cfg.spp
-    with mock.patch.object(api, "closest_hit", closest_hit_plain), \
-            mock.patch.object(api, "any_hit", any_hit_plain):
-        plain = _pool_render(scene, cam, cfg, seed=3)
+    assert launches["k1_closest_hit"] == 7 * cfg.spp
+    assert launches["k2_any_hit"] == 7 * cfg.spp
     _assert_agree(kernel, plain)
 
 
@@ -661,14 +744,16 @@ def test_mesh_at_world_size_one_over_nccl(cuda_box, tmp_path):
         cfg = BDPTConfig(32, 32, spp=2, rr_depth=4)
         want = render_image(scene, cam, cfg, seed=1)
         for mode in pm.FB_MODES:
-            got = pm.render_image_sharded(scene, cam, cfg, mesh, seed=1,
-                                          fb_mode=mode)
+            with _launched(*K12):
+                got = pm.render_image_sharded(scene, cam, cfg, mesh, seed=1,
+                                              fb_mode=mode)
             assert got[0].device == device
             _assert_agree(got, want)
         cfg = BDPTConfig(32, 32, spp=2, rr_depth=4, light_pool=32)
-        fb, nr = pm.render_chunk_pool_ring(
-            scene, cam.device_constants("cuda"), cfg, mesh,
-            rng.key(3, "cuda"), cfg.spp)
+        with _launched(*K12):
+            fb, nr = pm.render_chunk_pool_ring(
+                scene, cam.device_constants("cuda"), cfg, mesh,
+                rng.key(3, "cuda"), cfg.spp)
         _assert_agree((fb, int(nr)), _pool_render(scene, cam, cfg, seed=3))
     finally:
         dist.destroy_process_group()
@@ -919,3 +1004,236 @@ def test_tile_kernels_on_zero_entries():
         torch.cuda.synchronize()
         _bit_equal_closest(got, plain(tg, *rays))
         assert got[1].tolist() == [10, -1]
+
+
+def _stream_routes():
+    from bpt_tpu_torch.ops import trace_any as ta
+    from bpt_tpu_torch.ops import trace_closest as tc
+
+    return {"closest_hit_stream": tc.closest_hit_stream_plain,
+            "any_hit_stream": ta.any_hit_stream_plain}
+
+
+def _grad_kernel_and_plain(scene, cc, cfg, key, spp_chunk, routes, used):
+    """loss_and_grad through the kernels, held by _launched(*used), and
+    through the plain `routes` and G1's plain version; each field's
+    gradient held finite and within 1e-4 of its norm of the plain one.
+    Returns the kernels' gradients and their launches."""
+    from unittest import mock
+
+    from bpt_tpu_torch.accel import api
+    from bpt_tpu_torch.diff.grad import extract_params, loss_and_grad
+    from bpt_tpu_torch.ops import gather
+
+    params = extract_params(scene)
+    target = torch.zeros((cfg.width * cfg.height, 3), device="cuda")
+    with _launched(*used) as launches:
+        _, g = loss_and_grad(params, scene, cc, cfg, key, spp_chunk, target)
+    with mock.patch.multiple(api, **routes), mock.patch.object(
+            gather, "gather_rows_backward",
+            lambda ids, grads, m: gather.gather_rows_backward_plain(
+                ids.long(), grads, m)):
+        _, g_plain = loss_and_grad(params, scene, cc, cfg, key, spp_chunk,
+                                   target)
+    for f, v in g.items():
+        assert torch.isfinite(v).all()
+        assert float(torch.linalg.vector_norm((v - g_plain[f]).double())) \
+            <= 1e-4 * float(torch.linalg.vector_norm(g_plain[f].double()))
+    assert float(g["emission"].abs().sum()) > 0.0
+    return g, launches
+
+
+def _large_render(case, scene, meta, cam):
+    """A 32x32 render of the large scene by `case`: () -> (img, nrays)."""
+    from bpt_tpu_torch.integrators.bdpt import BDPTConfig, render_image
+    from bpt_tpu_torch.integrators.misc import MiscConfig, render_image_misc
+    from bpt_tpu_torch.integrators.path import PathConfig, render_image_path
+
+    if case == "bdpt":
+        cfg = BDPTConfig(32, 32, spp=2, rr_depth=4)
+        return lambda: render_image(scene, cam, cfg, seed=7)
+    if case == "path":
+        cfg = PathConfig(32, 32, 2)
+        return lambda: render_image_path(scene, cam, cfg, seed=7)
+    if case == "ao":
+        cfg = MiscConfig(32, 32, 2, integrator="ao")
+        return lambda: render_image_misc(scene, meta, cam, cfg, seed=7)
+    cfg = BDPTConfig(32, 32, spp=2, rr_depth=8, light_pool=16)
+    return lambda: _pool_render(scene, cam, cfg, seed=7)
+
+
+@pytest.mark.parametrize("case", ["bdpt", "path", "ao", "pool", "grad"])
+def test_large_scene_file_through_the_stream_kernels(cuda_large_file, case):
+    """The large scene read from its scene file (3,656 treelets, past
+    what K1 and K2 take) through K3 (and K4 where the case traces
+    occlusion), never K1 or K2: BDPT (2 spp, one a batch, rr_depth 4:
+    4 K3 and 1 K4 launches a batch), the path tracer with the scene
+    file's defaults, ao and the pool (16 light paths) held to their
+    renders through K3's and K4's plain versions by the aggregate gate,
+    and BDPT's gradients (1 spp) held to the plain versions'."""
+    from bpt_tpu_torch.core import rng
+    from bpt_tpu_torch.integrators.bdpt import BDPTConfig
+
+    scene, meta, cfg_t = cuda_large_file
+    cam = cfg_t.camera
+    if case == "grad":
+        _grad_kernel_and_plain(
+            scene, cam.device_constants("cuda"),
+            BDPTConfig(32, 32, spp=1, rr_depth=3), rng.key(11, "cuda"), 1,
+            _stream_routes(), (*K34, G1))
+        return
+    kernel, plain, launches = _kernel_and_plain(
+        _large_render(case, scene, meta, cam),
+        K34 if case != "path" else K34[:1], _stream_routes())
+    if case == "bdpt":
+        assert (launches["k3_closest_hit_stream"],
+                launches["k4_any_hit_stream"]) == (2 * 4, 2)
+    _assert_agree(kernel, plain)
+
+
+def _z(a, b):
+    """|z| of the difference of two lists of replicate means."""
+    se2 = lambda m: float(np.var(m, ddof=1)) / len(m)
+    return abs(float(np.mean(a)) - float(np.mean(b))) / (
+        se2(a) + se2(b) + 1e-30) ** 0.5
+
+
+def _means(render, seeds=range(100, 106)):
+    """Image means of render(key) over 6 disjoint seeds, each image
+    finite and non-negative."""
+    from bpt_tpu_torch.core import rng
+
+    means = []
+    for seed in seeds:
+        fb, _ = render(rng.key(seed, "cuda"))
+        assert torch.isfinite(fb).all() and float(fb.min()) >= 0.0
+        means.append(float(fb.double().mean()))
+    return means
+
+
+ESTIMATOR_CASES = {
+    # Without roulette at rr_depth 3 BDPT estimates another truncation
+    # (PERF.md section 6): only the path and light tracers must agree.
+    "no_rr": (dict(rr_depth=3), [("path_trace", "light_trace")]),
+    "no_rr_deep": (dict(rr_depth=16), None),
+    "rr": (dict(rr_depth=3, no_rr=False, max_bounces=16), None),
+}
+
+
+@pytest.mark.parametrize("case", [*ESTIMATOR_CASES, "path_vs_bdpt",
+                                  "pool_of_w_h"])
+def test_estimators_agree_through_the_kernels(case):
+    """tests/test_bdpt.py's cross-estimator check on the card, through
+    K1/K2: image means of the all-diffuse box (64x64, 8 spp in one
+    batch, 6 seeds from 100) held to |z| < 4 between BDPT, the path
+    tracer and the light tracer (without roulette at rr_depth 3 and 16,
+    with roulette to 16 bounces); the explicit path tracer (one emitter
+    and one BSDF sample, roulette from depth 5) against BDPT with
+    roulette; the pooled estimator at a pool of W*H paths against
+    per-pixel BDPT (4 spp, rr_depth 3)."""
+    from itertools import combinations
+
+    from bpt_tpu_torch.integrators.bdpt import BDPTConfig, render_chunk
+    from bpt_tpu_torch.integrators.path import PathConfig, render_chunk_path
+    from bpt_tpu_torch.scene.procedural import cornell_box_scene
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    w, spp = 64, 8
+    scene, _, cam = cornell_box_scene(w, w, device="cuda")
+    cc = cam.device_constants("cuda")
+
+    def chunk(cfg):
+        return lambda key: render_chunk(scene, cc, cfg, key, cfg.spp,
+                                        samples_per_batch=cfg.spp)
+
+    def estimate():
+        if case in ESTIMATOR_CASES:
+            extra, pairs = ESTIMATOR_CASES[case]
+            modes = ("bdpt", "path_trace", "light_trace")
+            means = {m: _means(chunk(BDPTConfig(w, w, spp=spp, mode=m,
+                                                **extra)))
+                     for m in modes}
+            pairs = pairs or list(combinations(modes, 2))
+        elif case == "path_vs_bdpt":
+            path = PathConfig(w, w, spp, rr_depth=5, max_bounces=16,
+                              bsdf_samples=1)
+            means = {"bdpt": _means(chunk(BDPTConfig(
+                         w, w, spp=spp, rr_depth=3, no_rr=False,
+                         max_bounces=16))),
+                     "path": _means(lambda key: render_chunk_path(
+                         scene, cc, path, key, spp, samples_per_batch=spp))}
+            pairs = [("bdpt", "path")]
+        else:
+            per_pixel = BDPTConfig(w, w, spp=4, rr_depth=3)
+            pool = BDPTConfig(w, w, spp=4, rr_depth=3, light_pool=w * w)
+            means = {"per_pixel": _means(chunk(per_pixel)),
+                     "pool": [float(_pool_render(scene, cam, pool, seed)[0]
+                                    .double().mean())
+                              for seed in range(100, 106)]}
+            pairs = [("per_pixel", "pool")]
+        return means, pairs
+
+    with _launched(*K12):
+        means, pairs = estimate()
+    for a, b in pairs:
+        assert _z(means[a], means[b]) < 4.0, (a, b, means)
+
+
+# case: (integrator, scene file lines, export settings, CLI arguments,
+# the kernels it launches).
+CLI_CASES = {
+    "bdpt": ("bdpt", "", {}, ["--spp-chunk", "2"], K12),
+    "path": ("path", "", dict(rr_depth=5), [], ("k1_closest_hit",)),
+    "direct_mis": ("direct", 'samplingStrategy = "mis"\n', {}, [],
+                   ("k1_closest_hit",)),
+    "ao": ("ao", "", {}, [], K12),
+    "realtime": ("ssao", "", dict(realtime=True), ["--frames", "2"], K12),
+    "fly": ("simple", "", dict(realtime=True), ["--fly", "..w.."], K12),
+}
+
+
+@pytest.mark.parametrize("case", list(CLI_CASES))
+def test_cli_on_the_card(tmp_path, capsys, case):
+    """The command-line renderer on its default device, the card, on a
+    32x32 glass-box scene file, through the kernels alone: the EXR finite
+    and not black, its meta.json naming the card and one device; bdpt
+    with --checkpoint, then resumed from the finished checkpoint (no
+    kernel launched, the same image); the realtime frame loop and the
+    fly script."""
+    import json
+
+    from bpt_tpu_torch.cli import main as cli_main
+    from bpt_tpu_torch.io.exr import read_exr
+    from bpt_tpu_torch.scene.export import export_cornell_box
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    integrator, extra, kw, args, used = CLI_CASES[case]
+    toml_path = export_cornell_box(
+        str(tmp_path / case), width=32, height=32, spp=4,
+        integrator=integrator, right_object="glass_sphere", sphere_subdiv=3,
+        **kw)
+    with open(toml_path, "a") as f:
+        f.write(extra)
+    if case == "bdpt":
+        args = args + ["--checkpoint", str(tmp_path / "bdpt.ckpt")]
+    out = str(tmp_path / f"{case}.exr")
+    with _launched(*used):
+        assert cli_main([toml_path, "--out", out, *args]) == 0
+    img = read_exr(out)
+    assert img.shape == (32, 32, 3) and np.isfinite(img).all()
+    assert img.mean() > 0.0
+    with open(out + ".meta.json") as f:
+        meta = json.load(f)
+    assert meta["device"] == torch.cuda.get_device_name(0)
+    assert meta["n_devices"] == 1
+    if case in ("realtime", "fly"):
+        assert meta["frames"] == (2 if case == "realtime" else 4)
+    if case == "bdpt":
+        capsys.readouterr()
+        again = str(tmp_path / "again.exr")
+        with _launched():
+            assert cli_main([toml_path, "--out", again, *args]) == 0
+        assert "resumed at 4/4 spp" in capsys.readouterr().out
+        assert np.array_equal(read_exr(again), img)
