@@ -24,7 +24,8 @@ nothing else.
 
 While a profiler runs, each call marks its compaction, kernel call and
 uncompaction with spans and counts the lanes it was handed and the live
-ones among them (telemetry.py).
+ones among them (telemetry.py); a call that a CUDA graph captures counts
+them too, for its replays.
 """
 from __future__ import annotations
 
@@ -45,10 +46,11 @@ def scene_bounds(tg):
 
 
 def _count(kind: str, plan) -> None:
-    """While profiling: the lanes handed to a trace (`trace.lanes.<kind>`)
-    and the live ones among them (`trace.live.<kind>`, a device count in
-    its own span, so readers can leave it out)."""
-    if telemetry.active():
+    """While counting (profiling, or recording a batch that a CUDA graph
+    captures): the lanes handed to a trace (`trace.lanes.<kind>`) and the
+    live ones among them (`trace.live.<kind>`, a device count in its own
+    span, so readers can leave it out)."""
+    if telemetry.counting():
         telemetry.add(f"trace.lanes.{kind}", plan.valid.shape[0])
         with telemetry.span("count"):
             telemetry.add_device(f"trace.live.{kind}",

@@ -93,8 +93,8 @@ def fold_in_plain(keys, data):
     """The plain version of `fold_in`."""
     _count_plain(fold_in_plain, keys)
     if not torch.is_tensor(data):
-        data = torch.tensor(int(data) & _MASK, dtype=torch.int64,
-                            device=keys.device)
+        data = torch.full((), int(data) & _MASK, dtype=torch.int64,
+                          device=keys.device)
     data = data.to(torch.int64) & _MASK
     y1, y2 = threefry2x32(keys[..., 0], keys[..., 1],
                           torch.zeros_like(data), data)

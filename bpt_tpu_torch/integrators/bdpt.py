@@ -62,6 +62,7 @@ from ..core.math import (
 )
 from ..ops.gather import gather_rows
 from ..scene.textures import albedo_at
+from . import graphs
 from . import mis as mis_fn
 from .common import (
     emission_at,
@@ -1045,7 +1046,9 @@ def render_chunk(scene, cam_consts, cfg: BDPTConfig, key, spp_chunk: int = 1,
     its pixel, so the estimate does not depend on chunking or on
     samples_per_batch (samples fused into one wavefront batch of
     sb * W * H lanes).  The buffer is already divided by cfg.spp.  The
-    key must lie on the scene's device.
+    key must lie on the scene's device.  On the card the batches replay
+    one CUDA graph once a batch of the same signature has run
+    (integrators/graphs.py).
     Returns (fb (W*H, 3), nrays 0-dim int64 tensor)."""
     w, h = cfg.width, cfg.height
     sb = samples_per_batch
@@ -1057,14 +1060,18 @@ def render_chunk(scene, cam_consts, cfg: BDPTConfig, key, spp_chunk: int = 1,
         raise ValueError(f"the key is on {key.device}, the scene on {dev}")
     pixel_idx = _blocked_pixel_order(w, h, dev)
 
+    def batch(key, sids):
+        pixel_idx_t, lkeys = sample_lane_keys(key, pixel_idx, sids)
+        return render_sample(scene, cam_consts, cfg, key, pixel_idx_t,
+                             lkeys=lkeys)
+
+    run = graphs.batch_runner(batch, scene, cam_consts, cfg, pixel_idx, sb)
     fb = torch.zeros((w * h, 3), dtype=torch.float32, device=dev)
     nrays = torch.zeros((), dtype=torch.int64, device=dev)
     for bi in range(spp_chunk // sb):
         sids = sample_offset + bi * sb + torch.arange(sb, device=dev)
-        pixel_idx_t, lkeys = sample_lane_keys(key, pixel_idx, sids)
         with telemetry.span("bdpt.batch"):
-            fb_s, nr = render_sample(scene, cam_consts, cfg, key,
-                                     pixel_idx_t, lkeys=lkeys)
+            fb_s, nr = run(key, sids)
         fb = fb + fb_s
         nrays = nrays + nr
     return fb, nrays

@@ -63,6 +63,15 @@ def _ray_cluster(o, d, bounds, n=4):
     return c_o * 8 + oct_, n * n * n * 8
 
 
+def _per_lane(x, b, dev):
+    """A (B,) float32 view of a bound given as a tensor or a Python float;
+    a float is filled on the device (no host-to-device copy, which a CUDA
+    graph capture refuses)."""
+    if torch.is_tensor(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev).expand(b)
+    return torch.full((), x, dtype=torch.float32, device=dev).expand(b)
+
+
 def compact_rays(o, d, min_t, max_t, bounds=None, kind="segment"):
     """Stably pack live lanes (max_t >= min_t) to the batch front.
 
@@ -73,8 +82,8 @@ def compact_rays(o, d, min_t, max_t, bounds=None, kind="segment"):
     """
     b = o.shape[0]
     dev = o.device
-    min_b = torch.as_tensor(min_t, dtype=torch.float32, device=dev).expand(b)
-    max_b = torch.as_tensor(max_t, dtype=torch.float32, device=dev).expand(b)
+    min_b = _per_lane(min_t, b, dev)
+    max_b = _per_lane(max_t, b, dev)
     valid = max_b >= min_b
     iota = torch.arange(b, dtype=torch.int64, device=dev)
     if bounds is not None:
