@@ -1037,18 +1037,33 @@ def _blocked_pixel_order(w: int, h: int, device, bs: int = 16):
     return idx.permute(0, 2, 1, 3).reshape(-1)
 
 
+def _pixel_shard(w: int, h: int, device, pixel_shard=(0, 1)):
+    """Shard i of n, pixel_shard = (i, n): the i-th of n equal contiguous
+    blocks of _blocked_pixel_order(w, h).  Raises ValueError unless n
+    divides W*H and 0 <= i < n."""
+    i, n = pixel_shard
+    if not 0 <= i < n or (w * h) % n:
+        raise ValueError(f"pixel shard {i} of {n} does not split {w}x{h} "
+                         f"pixels")
+    s = w * h // n
+    return _blocked_pixel_order(w, h, device)[i * s:(i + 1) * s]
+
+
 @telemetry.spanned("bdpt.render_chunk")
 def render_chunk(scene, cam_consts, cfg: BDPTConfig, key, spp_chunk: int = 1,
-                 sample_offset: int = 0, samples_per_batch: int = 1):
-    """Render `spp_chunk` full-image samples into one framebuffer.
+                 sample_offset: int = 0, samples_per_batch: int = 1,
+                 pixel_shard=(0, 1)):
+    """Render `spp_chunk` samples of the pixels of `pixel_shard` (i, n)
+    (_pixel_shard: by default the whole image) into one full-image
+    framebuffer (light splats land on any pixel).
 
     Sample s is keyed fold_in(key, sample_offset + s) and every lane by
-    its pixel, so the estimate does not depend on chunking or on
+    its pixel, so the estimate does not depend on chunking, on
     samples_per_batch (samples fused into one wavefront batch of
-    sb * W * H lanes).  The buffer is already divided by cfg.spp.  The
-    key must lie on the scene's device.  On the card the batches replay
-    one CUDA graph once a batch of the same signature has run
-    (integrators/graphs.py).
+    sb * W * H / n lanes) or on the shards.  The buffer is already
+    divided by cfg.spp.  The key must lie on the scene's device.  On the
+    card the batches replay one CUDA graph once a batch of the same
+    signature has run (integrators/graphs.py).
     Returns (fb (W*H, 3), nrays 0-dim int64 tensor)."""
     w, h = cfg.width, cfg.height
     sb = samples_per_batch
@@ -1058,14 +1073,15 @@ def render_chunk(scene, cam_consts, cfg: BDPTConfig, key, spp_chunk: int = 1,
     dev = scene.geom.v0.device
     if key.device != dev:
         raise ValueError(f"the key is on {key.device}, the scene on {dev}")
-    pixel_idx = _blocked_pixel_order(w, h, dev)
+    pixel_idx = _pixel_shard(w, h, dev, pixel_shard)
 
     def batch(key, sids):
         pixel_idx_t, lkeys = sample_lane_keys(key, pixel_idx, sids)
         return render_sample(scene, cam_consts, cfg, key, pixel_idx_t,
                              lkeys=lkeys)
 
-    run = graphs.batch_runner(batch, scene, cam_consts, cfg, pixel_idx, sb)
+    run = graphs.batch_runner(batch, scene, cam_consts, cfg, pixel_idx, sb,
+                              tuple(pixel_shard))
     fb = torch.zeros((w * h, 3), dtype=torch.float32, device=dev)
     nrays = torch.zeros((), dtype=torch.int64, device=dev)
     for bi in range(spp_chunk // sb):

@@ -8,9 +8,10 @@ replays it for every later batch of the same signature:
 
   * the signature is the device; the identity (address, shape, dtype) of
     every tensor of the scene and the camera constants; the
-    configuration; the lanes and samples a batch; and what the batch's
-    Python reads outside its arguments: the trace and RNG entry points
-    (which comparison harnesses swap) and the pair grid's lane budget;
+    configuration; the pixel shard, and the lanes and samples a batch;
+    and what the batch's Python reads outside its arguments: the trace
+    and RNG entry points (which comparison harnesses swap) and the pair
+    grid's lane budget;
   * the first batch of a signature runs eagerly, which also warms what
     capture needs (lazily built tables, the kernel library, the
     allocator's blocks); the second is captured and replayed; every later
@@ -108,10 +109,11 @@ def needs_eager(device, reads) -> bool:
                 and any(t.requires_grad for t in reads)))
 
 
-def signature(device, reads, cfg, lanes: int, sb: int) -> tuple:
+def signature(device, reads, cfg, lanes: int, sb: int,
+              pixel_shard=(0, 1)) -> tuple:
     return (torch.device(device),
             tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in reads),
-            cfg, lanes, sb, routes())
+            cfg, pixel_shard, lanes, sb, routes())
 
 
 class BatchGraphs:
@@ -166,7 +168,12 @@ class BatchGraphs:
         inputs = (key.clone(), sids.clone())
         before = attribute_counters()
         graph = torch.cuda.CUDAGraph()
-        with telemetry.recording() as record, torch.cuda.graph(graph):
+        # "thread_local": the capture refuses an unsafe CUDA call (an event
+        # query, say) from this thread only.  "global" refuses one from any
+        # thread, and a rank of a mesh has another: the NCCL watchdog,
+        # which polls its collectives' events while the batch is captured.
+        with telemetry.recording() as record, \
+                torch.cuda.graph(graph, capture_error_mode="thread_local"):
             outputs = batch(*inputs)
         after = attribute_counters()
         for (fn, attr), n in before.items():
@@ -194,13 +201,16 @@ def _eager(batch, key, sids):
     return batch(key, sids)
 
 
-def batch_runner(batch, scene, cam_consts, cfg, pixel_idx, sb: int):
+def batch_runner(batch, scene, cam_consts, cfg, pixel_idx, sb: int,
+                 pixel_shard=(0, 1)):
     """The function (key, sids) -> batch(key, sids) that runs the batches
-    of one `render_chunk` call: eagerly, or through `CACHE`."""
+    of one `render_chunk` call over the pixels `pixel_idx` of shard
+    `pixel_shard`: eagerly, or through `CACHE`."""
     dev = pixel_idx.device
     reads = tensors((scene, cam_consts))
     if needs_eager(dev, reads):
         return functools.partial(_eager, batch)
-    sig = signature(dev, reads, cfg, pixel_idx.shape[0] * sb, sb)
+    sig = signature(dev, reads, cfg, pixel_idx.shape[0] * sb, sb,
+                    pixel_shard)
     return functools.partial(CACHE.run, sig, (scene, cam_consts, pixel_idx),
                              batch)

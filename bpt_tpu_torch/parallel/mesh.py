@@ -18,20 +18,30 @@ its make_mesh reshapes the device list):
 Ranks on CUDA use NCCL, one GPU each (torchrun --nproc_per_node=N);
 CPU ranks use gloo.  Every collective is issued by every rank in the
 same order.
+
+Telemetry (telemetry.py): spans `mesh.chunk` (render_chunk_sharded) and
+`mesh.merge` (the merge's collectives); counters `mesh.merge.calls` and
+`mesh.merge.bytes` (the bytes handed to each all_reduce and
+reduce_scatter); the timer `mesh.merge_s`, the merge's host wall with
+the device synced before and after, kept only while a profiler runs so
+that an untimed render gains no sync: on one rank, its wait for the
+slowest rank plus the collectives.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
 
+from .. import telemetry
 from ..core import rng
 from ..integrators.bdpt import (
     BDPTConfig,
     LightVertexSlots,
-    render_sample,
+    render_chunk,
     render_sample_pool,
 )
 
@@ -125,41 +135,70 @@ def _shard(n: int, mesh: Mesh, device):
                         dtype=torch.int32, device=device)
 
 
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def _merge_timer(device):
+    """telemetry.timed("mesh.merge_s") with `device` synced before and
+    after, while a profiler runs; nothing otherwise."""
+    if not telemetry.counting():
+        yield
+        return
+    _sync(device)
+    with telemetry.timed("mesh.merge_s"):
+        yield
+        _sync(device)
+
+
+def _reduced(t):
+    """`t`, counted as handed to one all_reduce or reduce_scatter."""
+    telemetry.add("mesh.merge.bytes", t.numel() * t.element_size())
+    return t
+
+
 def _merge(fb, nrays, mesh: Mesh, fb_mode: str):
     """The collective that replaces the reference's per-pixel mutexes:
     every rank's buffer is a partial sum over the whole image."""
-    if fb_mode == "psum":
-        dist.all_reduce(fb)
-    else:
-        out = fb.new_empty((fb.shape[0] // mesh.n_dp, 3))
-        dist.reduce_scatter_tensor(out, fb, group=mesh.dp_group)
-        dist.all_reduce(out, group=mesh.sp_group)
-        fb = out
-    dist.all_reduce(nrays)
+    telemetry.add("mesh.merge.calls", 1)
+    with telemetry.span("mesh.merge"), _merge_timer(fb.device):
+        if fb_mode == "psum":
+            dist.all_reduce(_reduced(fb))
+        else:
+            out = fb.new_empty((fb.shape[0] // mesh.n_dp, 3))
+            dist.reduce_scatter_tensor(out, _reduced(fb),
+                                       group=mesh.dp_group)
+            dist.all_reduce(_reduced(out), group=mesh.sp_group)
+            fb = out
+        dist.all_reduce(_reduced(nrays))
     return fb, nrays
 
 
+@telemetry.spanned("mesh.chunk")
 def render_chunk_sharded(scene, cam_consts, cfg: BDPTConfig, mesh: Mesh,
-                         key, spp_chunk: int, fb_mode: str = "psum"):
+                         key, spp_chunk: int, fb_mode: str = "psum",
+                         sample_offset: int = 0, samples_per_batch: int = 1):
     """Render spp_chunk * n_sp samples a pixel over the mesh: this rank
-    renders its 'dp' block of pixels for samples sp_i * spp_chunk + s,
-    each keyed fold_in(key, sample), one render_sample a sample.
+    renders samples sample_offset + sp_i * spp_chunk + s (s < spp_chunk)
+    of its 'dp' shard of the pixels (render_chunk's pixel_shard (dp_i,
+    n_dp): the dp_i-th of n_dp contiguous blocks of its blocked pixel
+    order) through render_chunk, samples_per_batch samples a batch, so
+    on the card its batches replay one CUDA graph; then the merge.
 
     Returns (framebuffer, nrays), summed over the world (weighted 1/spp a
     sample): fb_mode "psum" gives every rank the (W*H, 3) buffer (one
     all_reduce), "reduce_scatter" its (W*H / n_dp, 3) pixel rows (the
-    memory-scalable merge).  nrays is a 0-dim int64 tensor."""
+    memory-scalable merge).  nrays is a 0-dim int64 tensor.  Raises
+    ValueError for an unknown fb_mode, pixels that do not split over
+    'dp' and spp_chunk that samples_per_batch does not divide."""
     _check(cfg, mesh, fb_mode)
-    n_pix = cfg.width * cfg.height
-    dev = scene.geom.v0.device
-    pix = _shard(n_pix, mesh, dev)
-    fb = torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
-    nrays = torch.zeros((), dtype=torch.int64, device=dev)
-    for s in range(spp_chunk):
-        k = rng.fold_in(key, mesh.sp_i * spp_chunk + s)
-        fb_s, nr = render_sample(scene, cam_consts, cfg, k, pix)
-        fb = fb + fb_s
-        nrays = nrays + nr
+    fb, nrays = render_chunk(scene, cam_consts, cfg, key, spp_chunk,
+                             sample_offset=sample_offset
+                             + mesh.sp_i * spp_chunk,
+                             samples_per_batch=samples_per_batch,
+                             pixel_shard=(mesh.dp_i, mesh.n_dp))
     return _merge(fb, nrays, mesh, fb_mode)
 
 
@@ -192,8 +231,10 @@ def render_chunk_pool_ring(scene, cam_consts, cfg: BDPTConfig, mesh: Mesh,
     whole pool.  Pool walks are keyed by global pool index, so the image
     equals the single-device render_sample_pool's up to float order.
 
-    Samples and the merge as render_chunk_sharded.  Raises ValueError for
-    cfg.light_pool <= 0 or a pool that does not divide by n_dp."""
+    Samples sp_i * spp_chunk + s, one render_sample_pool a sample over
+    this rank's rows of pixels, and the merge as render_chunk_sharded.
+    Raises ValueError for cfg.light_pool <= 0 or a pool that does not
+    divide by n_dp."""
     _check(cfg, mesh, fb_mode)
     if cfg.light_pool <= 0:
         raise ValueError("render_chunk_pool_ring needs cfg.light_pool > 0")

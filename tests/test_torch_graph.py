@@ -123,21 +123,23 @@ def test_a_comparison_harness_keeps_its_signature_eager(monkeypatch):
 
 def test_signature(box):
     """Equal for the same inputs; another for a scene of other tensors,
-    another configuration, batch size, trace or RNG route or lane
-    budget."""
+    another configuration, batch size, pixel shard of the same lanes,
+    trace or RNG route or lane budget."""
     scene, cc = box
     reads = graphs.tensors((scene, cc))
     assert len(reads) > 30 and all(torch.is_tensor(t) for t in reads)
 
-    def sig(sc=scene, cfg=CFG, sb=2):
+    def sig(sc=scene, cfg=CFG, sb=2, shard=(0, 1)):
         return graphs.signature(CUDA, graphs.tensors((sc, cc)), cfg,
-                                W * H * sb, sb)
+                                W * H * sb // shard[1], sb, shard)
 
     base = sig()
     assert sig() == base
+    assert graphs.signature(CUDA, reads, CFG, W * H * 2, 2) == base
     assert sig(sc=scene._replace(n0=scene.n0.clone())) != base
     assert sig(cfg=bdpt.BDPTConfig(W, H, spp=6, rr_depth=4)) != base
     assert sig(sb=1) != base
+    assert sig(sb=4, shard=(0, 2)) != sig(sb=4, shard=(1, 2))
     with mock.patch.object(api, "closest_hit",
                            trace_closest.closest_hit_plain):
         assert sig() != base

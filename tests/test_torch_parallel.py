@@ -1,7 +1,9 @@
 """parallel/mesh.py on torch.distributed: worlds of 2 and 4 CPU processes
 over gloo, one per mesh shape, against the reference package's
 single-device renders (tests/test_parallel.py's and tests/test_ring.py's
-gates) and against the port's single-process gradient.
+gates, and its render_chunk of a progressive batched chunk) and against
+the port's single-process gradient; the mesh's spans, counters and merge timer; and render_chunk's pixel
+shards.
 
 Each world is this file run as a script (`--worker`), one process a
 rank, meeting through a FileStore under the test's temporary directory;
@@ -37,6 +39,11 @@ FB_MODES = ("psum", "reduce_scatter")
 GRAD = dict(rr_depth=2, spp=4, lr=0.1)
 # The ValueErrors each mesh must raise: (case, whether it applies).
 ERRORS = ("mesh_size", "fb_mode", "pixels", "spp", "pool_zero", "pool_split")
+# The progressive batched entry: samples PROG_OFFSET .. PROG_OFFSET +
+# PROG_SPP - 1, PROG_SB a batch, split over 'sp'.
+PROG_OFFSET = 3
+PROG_SPP = 4
+PROG_SB = 2
 
 
 # ---- the worker ------------------------------------------------------------
@@ -117,6 +124,37 @@ def _descent_step(mesh, device):
     return loss.detach(), out, new
 
 
+def _telemetry(pm, scene, cc, mesh, key, mode):
+    """One render_chunk_sharded call under a profiler, one without:
+    [merge calls, merge bytes, merge timer read, both spans recorded]
+    of the first; the same four of the second must be zero."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bpt_tpu_torch import telemetry
+    from bpt_tpu_torch.integrators import bdpt as tb
+
+    cfg = tb.BDPTConfig(W, W, spp=1, rr_depth=2)
+    out = []
+    for profiled in (True, False):
+        telemetry.reset()
+        if profiled:
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                pm.render_chunk_sharded(scene, cc, cfg, mesh, key, 1,
+                                        fb_mode=mode)
+            names = {e.name for e in prof.events()}
+        else:
+            pm.render_chunk_sharded(scene, cc, cfg, mesh, key, 1,
+                                    fb_mode=mode)
+            names = set()
+        snap = telemetry.snapshot()
+        out += [snap.get("mesh.merge.calls", 0),
+                snap.get("mesh.merge.bytes", 0),
+                int(snap.get("mesh.merge_s", 0.0) > 0.0),
+                int({"bpt.mesh.chunk", "bpt.mesh.merge"} <= names)]
+    telemetry.reset()
+    return out
+
+
 def worker(rank, world, n_dp, n_sp, store, out_path):
     import torch.distributed as dist
 
@@ -148,6 +186,15 @@ def worker(rank, world, n_dp, n_sp, store, out_path):
             POOL_SPP // n_sp, fb_mode=mode)
         res[f"ring_{mode}"] = fb.numpy()
         res[f"ring_{mode}_nrays"] = int(nr)
+        cfg = tb.BDPTConfig(W, W, spp=PROG_OFFSET + PROG_SPP, rr_depth=RR)
+        fb, nr = pm.render_chunk_sharded(
+            scene, cc, cfg, mesh, rng.key(0, device), PROG_SPP // n_sp,
+            fb_mode=mode, sample_offset=PROG_OFFSET,
+            samples_per_batch=PROG_SB)
+        res[f"prog_{mode}"] = fb.numpy()
+        res[f"prog_{mode}_nrays"] = int(nr)
+        res[f"tele_{mode}"] = np.array(_telemetry(pm, scene, cc, mesh,
+                                                  rng.key(0, device), mode))
     for case, raised in _errors(pm, tb, scene, cc, cam, mesh,
                                 rng.key(0, device)).items():
         res[f"error_{case}"] = raised
@@ -198,7 +245,8 @@ def _finish_world(procs, deadline):
 def _references():
     """The reference package's single-device renders (default box, 16x16,
     seed 0: BDPT and light_trace at SPP; the pooled render of POOL_SPP
-    samples at key POOL_SEED) and the port's single-process loss and
+    samples at key POOL_SEED; render_chunk's PROG_SPP samples from
+    PROG_OFFSET, PROG_SB a batch) and the port's single-process loss and
     gradient of dryrun_multichip's step."""
     import jax
     import jax.numpy as jnp
@@ -227,6 +275,11 @@ def _references():
         fb_s, nr = sample(jax.random.fold_in(jax.random.key(POOL_SEED), s))
         fb, nrays = fb + np.asarray(fb_s), nrays + int(nr)
     ref["ring"] = (fb, nrays)
+    fb, nr = jb.render_chunk(
+        js, cc, jb.BDPTConfig(W, W, spp=PROG_OFFSET + PROG_SPP, rr_depth=RR),
+        jax.random.key(0), PROG_SPP, sample_offset=PROG_OFFSET,
+        samples_per_batch=PROG_SB)
+    ref["prog"] = (np.asarray(fb), int(nr))
 
     scene, _, cam = cornell_box_scene(W, W, device="cpu",
                                       right_object="glass_sphere",
@@ -323,6 +376,84 @@ def test_pool_ring_matches_reference(runs, name, mode):
         got, rows = _full(rank, f"ring_{mode}", n_dp, mode, want)
         np.testing.assert_allclose(got, rows, rtol=2e-4, atol=2e-6)
         assert int(rank[f"ring_{mode}_nrays"]) == n_want
+
+
+@pytest.mark.parametrize("mode", FB_MODES)
+@pytest.mark.parametrize("name", MESHES)
+def test_progressive_batched_entry_matches_render_chunk(runs, name, mode):
+    """render_chunk_sharded as a progressive, batched entry (samples from
+    PROG_OFFSET, PROG_SB a batch, through render_chunk on each rank's
+    pixel shard): the reference package's single-device render_chunk of
+    the same samples, rtol 1e-4 / atol 1e-5 and equal ray counts; under
+    reduce_scatter each rank holds its pixel rows."""
+    want, n_want = runs[1]["prog"]
+    n_dp = MESHES[name][0]
+    for rank in _ranks(runs, name):
+        got, rows = _full(rank, f"prog_{mode}", n_dp, mode, want)
+        np.testing.assert_allclose(got, rows, rtol=1e-4, atol=1e-5)
+        assert int(rank[f"prog_{mode}_nrays"]) == n_want
+
+
+@pytest.mark.parametrize("mode", FB_MODES)
+@pytest.mark.parametrize("name", MESHES)
+def test_merge_is_spanned_counted_and_timed(runs, name, mode):
+    """While a profiler runs, a sharded chunk records the spans
+    bpt.mesh.chunk and bpt.mesh.merge, one merge, the bytes handed to its
+    collectives (the framebuffer, under reduce_scatter also this rank's
+    rows, and the ray count) and the merge timer; without one, nothing."""
+    fb = W * W * 3 * 4
+    moved = fb + 8 if mode == "psum" else fb + fb // MESHES[name][0] + 8
+    for rank in _ranks(runs, name):
+        assert rank[f"tele_{mode}"].tolist() == [1, moved, 1, 1, 0, 0, 0, 0]
+
+
+@pytest.mark.parametrize("w,h,n", [(16, 16, 2), (32, 32, 4), (48, 16, 3),
+                                   (24, 8, 4), (256, 256, 4)])
+def test_pixel_shards_cover_every_pixel_once(w, h, n):
+    """render_chunk's pixel shards, in order, are the blocked pixel order:
+    every pixel in exactly one shard.  At 256x256 over 4 a shard is 16
+    whole rows of 16x16 blocks, the pixel rows the mesh's merge assigns
+    to that rank."""
+    from bpt_tpu_torch.integrators.bdpt import _blocked_pixel_order, \
+        _pixel_shard
+
+    shards = [_pixel_shard(w, h, "cpu", (i, n)) for i in range(n)]
+    assert torch.equal(torch.cat(shards), _blocked_pixel_order(w, h, "cpu"))
+    assert sorted(torch.cat(shards).tolist()) == list(range(w * h))
+    if (w, h) == (256, 256):
+        s = w * h // n
+        for i, sh in enumerate(shards):
+            assert sorted(sh.tolist()) == list(range(i * s, (i + 1) * s))
+
+
+def test_sharded_render_chunks_add_up_to_the_image():
+    """render_chunk over each pixel shard (light splats landing anywhere)
+    adds up to the whole image's render_chunk, ray counts included; a
+    shard that does not split the image raises ValueError."""
+    from bpt_tpu_torch.core import rng
+    from bpt_tpu_torch.integrators.bdpt import BDPTConfig, render_chunk
+    from bpt_tpu_torch.scene.procedural import cornell_box_scene
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        scene, _, cam = cornell_box_scene(W, W, device="cpu",
+                                          right_object="glass_sphere")
+        cc, key = cam.device_constants("cpu"), rng.key(5, "cpu")
+        cfg = BDPTConfig(W, W, spp=4, rr_depth=RR)
+        want, n_want = render_chunk(scene, cc, cfg, key, 2, sample_offset=1,
+                                    samples_per_batch=2)
+        parts = [render_chunk(scene, cc, cfg, key, 2, sample_offset=1,
+                              samples_per_batch=2, pixel_shard=(i, 4))
+                 for i in range(4)]
+        for bad in ((0, 3), (2, 2), (-1, 4)):
+            with pytest.raises(ValueError, match="pixel shard"):
+                render_chunk(scene, cc, cfg, key, 2, pixel_shard=bad)
+    finally:
+        torch.set_num_threads(n)
+    np.testing.assert_allclose(sum(fb for fb, _ in parts).numpy(),
+                               want.numpy(), rtol=1e-5, atol=1e-6)
+    assert sum(int(nr) for _, nr in parts) == int(n_want)
 
 
 @pytest.mark.parametrize("name", MESHES)
